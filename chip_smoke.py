@@ -1,0 +1,552 @@
+"""Drive the PyTorch/CUDA port's resident OMS main path on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero; nothing is caught into a success):
+  1. environment: card, power limit, torch/CUDA/nvcc versions, triton;
+     build the CUDA kernels from the sources in this checkout.
+  2. hdencode kernel against its plain PyTorch version on the card, at
+     dim 4096 and at 7 words.
+  3. the main path at the iPRG2012 scale of Table I: OMSPipeline ingest of
+     1,160,000 spectra plus as many decoys, 16,000 queries encoded and
+     searched (backend ``fused``, encode backend ``pallas``), FDR at 1%;
+     both kernels' launch counts are read around this phase. Then the
+     fused_search kernel against its plain version on 8 of its query
+     blocks, at k = 1 and k = 4, and at 7 words (the scalar-load variant).
+  4. path against path: the first 512 queries through the plain torch ops
+     (vpu, word_tiled) and through the kernels (fused, pallas) against the
+     full DB; a 4,096-row library slice re-encoded with word_tiled against
+     the kernel-built DB; and a small dataset through the kernels on the
+     card against the plain versions on the CPU.
+  5. kernel times (CUDA events, median of 10 after a warm-up) beside their
+     plain versions at the same shapes (fused_search's plain version on the
+     whole batch, held bit for bit against the kernel there and timed as
+     the median of 3) and their lower bounds, printed as one ``kernels``
+     JSON line.
+
+The last line is ``{"ok": true, "device": {...}}``. The script imports
+neither jax nor the reference package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(HERE / "src"))
+
+SEED = 0
+DEVICE = "cuda"
+HDENCODE_SPECTRA = 4096
+FUSED_CHECK_BLOCKS = 8
+PATH_CHECK_QUERIES = 512
+SLICE_ROWS = 4096
+ENCODE_BATCH = 4096      # spectra per hdencode launch on the main path
+CHUNK_ROWS = 1 << 16     # library rows per ingest chunk
+TIMING_ITERS = 10
+
+FUSED_PLAIN_ITERS = 3    # the plain search takes ~20 s per full batch
+NARROW_W = 7             # a word count that takes the kernels' scalar paths
+
+# Device peaks for the lower bounds (NVIDIA H100 SXM data sheet; CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0: 64 32-bit integer add/logic (incl. 3-input LOP3) and 16 popc results
+# per clock per SM).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_CLK_SM = 64
+POPC_PER_CLK_SM = 16
+INT8_TENSOR_OPS_PER_S = 1979e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    require(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: bool = True) -> float:
+    """Median milliseconds of ``fn()`` on the card over ``iters`` runs (after
+    one warm-up run unless the caller has just run it), each bracketed by
+    CUDA events."""
+    import torch
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+def max_abs_err(pairs) -> int:
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+               for a, b in pairs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: environment and build
+# ---------------------------------------------------------------------------
+
+
+def phase_environment(torch) -> dict:
+    from repro_torch.kernels import _build
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi("name,power.limit")
+    clock = nvidia_smi("clocks.max.sm")
+    try:
+        nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.strip().splitlines()[-1]
+    except (OSError, IndexError) as e:
+        fail(f"nvcc not usable: {e}")
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = None
+    log(f"[env] device: {name} (count {torch.cuda.device_count()})")
+    log(f"[env] nvidia-smi name, power.limit: {smi}")
+    log(f"[env] max SM clock: {clock}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} nvcc: {nvcc}")
+    log(f"[env] triton: {triton_v or 'not importable'}")
+    return {"name": name, "smi": smi, "clock_hz": float(clock.split()[0]) * 1e6,
+            "n_sms": torch.cuda.get_device_properties(0).multi_processor_count}
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    lib = _build.build(log=lambda s: log("\n".join(
+        f"[build] {line}" for line in s.splitlines()
+        if "registers" in line or "Compiling" in line or "error" in line.lower()
+        or line.startswith("[nvcc"))))
+    _build.library()
+    log(f"[build] {len(_build.sources())} sources -> {lib.relative_to(HERE)} "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: hdencode kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def hdencode_inputs(torch, dev, n_bins: int, n_levels: int, B: int, P: int = 64):
+    """Random spectra plus the edge rows: all-masked, 2 and 4 valid peaks
+    (majority ties wherever the bound HVs differ)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bins = torch.randint(0, n_bins, (B, P), generator=g, device=dev, dtype=torch.int32)
+    levels = torch.randint(0, n_levels, (B, P), generator=g, device=dev,
+                           dtype=torch.int32)
+    mask = torch.rand((B, P), generator=g, device=dev) < 0.7
+    mask[0] = False
+    mask[1] = False
+    mask[1, :2] = True
+    mask[2] = False
+    mask[2, :4] = True
+    return bins, levels, mask
+
+
+def phase_hdencode_check(torch, cb) -> None:
+    from repro_torch.kernels.hdencode import ops, ref
+    dev = cb.device
+    bins, levels, mask = hdencode_inputs(torch, dev, cb.id_hvs.shape[0],
+                                         cb.level_hvs.shape[0], HDENCODE_SPECTRA)
+    args = (bins, levels, mask, cb.id_hvs, cb.level_hvs, cb.tiebreak)
+    got = ops.hdencode(*args)
+    torch.cuda.synchronize()
+    want = ref.hdencode(*args)
+    require(equal(got, want), "hdencode kernel differs from its plain version")
+    require(equal(got[0], cb.tiebreak), "all-masked spectrum is not the tiebreak HV")
+    log(f"[check] hdencode kernel == plain on {tuple(bins.shape)} spectra x "
+        f"peaks at dim {cb.dim} (all-masked and tie rows included): bit-identical")
+    # A word count that is neither a warp nor a block multiple.
+    narrow = tuple(t[..., :NARROW_W].contiguous()
+                   for t in (cb.id_hvs, cb.level_hvs, cb.tiebreak))
+    got = ops.hdencode(bins, levels, mask, *narrow)
+    torch.cuda.synchronize()
+    require(equal(got, ref.hdencode(bins, levels, mask, *narrow)),
+            f"hdencode kernel differs from its plain version at W = {NARROW_W}")
+    log(f"[check] hdencode kernel == plain at W = {NARROW_W} words: bit-identical")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: main path
+# ---------------------------------------------------------------------------
+
+
+def sorted_batch(torch, pipe, hvs, q_pmz, q_charge):
+    """The main path's sorted/padded query layout, its params and start rows."""
+    from repro_torch.core import search
+    params = pipe.search_params(q_pmz.cpu().numpy(), q_charge.cpu().numpy())
+    gather, _ = search.sort_pad_plan(q_pmz, q_charge, params.q_block)
+    qh, qp, qc = hvs[gather], q_pmz[gather], q_charge[gather]
+    starts = search.block_start_rows(pipe.db, params, qp, qc)
+    return params, qh, qp, qc, starts
+
+
+def phase_main_path(torch, ds, cfg):
+    import numpy as np
+    from repro_torch.core.pipeline import OMSPipeline
+    from repro_torch.kernels.hamming import ops as fs_ops
+    from repro_torch.kernels.hdencode import ops as hd_ops
+
+    hd_ops.launches.reset()
+    fs_ops.launches.reset()
+    t0 = time.perf_counter()
+    pipe = OMSPipeline(cfg, ds.refs, device=DEVICE, chunk_rows=CHUNK_ROWS)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hvs, q_pmz, q_charge = pipe.encode_queries(ds.queries)
+    torch.cuda.synchronize()
+    t_encode = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = pipe.search_encoded(hvs, q_pmz, q_charge)
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    launches = {"hdencode": hd_ops.launches.count,
+                "fused_search": fs_ops.launches.count}
+    # The same search again: the first call also pays one-time costs (lazy
+    # module load of the kernel library on the device, allocator growth).
+    t0 = time.perf_counter()
+    pipe.search_encoded(hvs, q_pmz, q_charge)
+    torch.cuda.synchronize()
+    t_search_warm = time.perf_counter() - t0
+
+    Q = ds.queries.mz.shape[0]
+    params = pipe.search_params(q_pmz.cpu().numpy(), q_charge.cpu().numpy())
+    log(f"[main] ingested {pipe.db.n_rows} rows ({pipe.db.n_blocks} blocks of "
+        f"{cfg.max_r}, {2 * pipe.n_targets} spectra) in {t_ingest:.2f}s")
+    log(f"[main] encoded {Q} queries in {t_encode:.3f}s; searched in "
+        f"{t_search:.3f}s (backend={cfg.backend}, encode_backend="
+        f"{cfg.encode_backend}, k_blocks={params.k_blocks}, "
+        f"rows/block={params.k_blocks * cfg.max_r}); searched again in "
+        f"{t_search_warm:.3f}s ({Q / t_search_warm:.0f} queries/s)")
+    src = ds.query_source
+    mod = ds.query_modified
+    open_hit = out.result.open_idx[:, 0].cpu().numpy() == src
+    std_hit = out.result.std_idx[:, 0].cpu().numpy() == src
+    log(f"[main] open-search recall@1:     {open_hit.mean():.3f} "
+        f"(modified queries: {open_hit[mod].mean():.3f})")
+    log(f"[main] standard-search recall@1: {std_hit.mean():.3f} "
+        f"(modified queries: {std_hit[mod].mean():.3f})")
+    n_id = pipe.identifications(out)
+    log(f"[main] identifications @ {cfg.fdr_threshold:.0%} FDR: {n_id} / "
+        f"{Q * cfg.top_k}")
+    log(f"[main] launches: {json.dumps(launches)}")
+
+    r = out.result
+    for f in r._fields:
+        t = getattr(r, f)
+        require(tuple(t.shape) == (Q, cfg.top_k) and t.dtype == torch.int32,
+                f"SearchResult.{f} has shape {tuple(t.shape)} {t.dtype}")
+    for f in ("std_sim", "open_sim"):
+        t = getattr(r, f)
+        require(bool(((t >= -1) & (t <= cfg.dim)).all()), f"{f} out of range")
+    for f in ("std_idx", "open_idx"):
+        t = getattr(r, f)
+        require(bool(((t >= -1) & (t < 2 * pipe.n_targets)).all()),
+                f"{f} out of range")
+    for fd in (out.open_fdr, out.std_fdr):
+        require(bool(torch.isfinite(fd.q_values).all()
+                     & (fd.q_values >= 0).all() & (fd.q_values <= 1).all()),
+                "q-values not finite in [0, 1]")
+    require(n_id > 0 and np.isfinite(open_hit.mean()), "no identifications")
+    for name, n in launches.items():
+        require(n > 0, f"the main path launched the {name} kernel {n} times")
+    return pipe, hvs, q_pmz, q_charge, launches
+
+
+def phase_fused_check(torch, pipe, hvs, q_pmz, q_charge) -> int:
+    from repro_torch.kernels.hamming import ops, ref
+    import numpy as np
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    QB = params.q_block
+    nqb = starts.shape[0]
+    pick = np.unique(np.linspace(0, nqb - 1, FUSED_CHECK_BLOCKS).astype(np.int64))
+    rows = (pick[:, None] * QB + np.arange(QB)[None, :]).reshape(-1)
+    rows_t = torch.from_numpy(rows).to(qh.device)
+    rk = params.k_blocks * pipe.db.max_r
+    db = pipe.db
+    args = (qh[rows_t].contiguous(), qp[rows_t].contiguous(), qc[rows_t].contiguous(),
+            db.hvs, db.pmz, db.charge,
+            starts[torch.from_numpy(pick).to(qh.device)].contiguous())
+    for k in (1, 4):
+        kw = dict(q_block=QB, rk=rk, dim=pipe.cfg.dim, k=k,
+                  ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+        got = ops.fused_search(*args, **kw)
+        torch.cuda.synchronize()
+        want = ref.fused_search(*args, **kw)
+        for name, g, w in zip(("std_sim", "std_row", "open_sim", "open_row"), got, want):
+            require(equal(g, w), f"fused_search kernel differs from plain ({name}, k={k})")
+        log(f"[check] fused_search kernel == plain on {len(pick)} main-path query "
+            f"blocks x {rk} rows at k={k}: bit-identical "
+            f"(in-window open winners: {int((want[3] >= 0).sum())})")
+    # A word count that is not a multiple of 4 takes the scalar-load variant.
+    narrow = (args[0][:, :NARROW_W].contiguous(), *args[1:3],
+              db.hvs[:, :NARROW_W].contiguous(), *args[4:])
+    kw = dict(q_block=QB, rk=rk, dim=32 * NARROW_W, k=4,
+              ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+    got = ops.fused_search(*narrow, **kw)
+    torch.cuda.synchronize()
+    want = ref.fused_search(*narrow, **kw)
+    for name, g, w in zip(("std_sim", "std_row", "open_sim", "open_row"), got, want):
+        require(equal(g, w), f"fused_search kernel differs from plain ({name}, "
+                f"W={NARROW_W})")
+    log(f"[check] fused_search kernel == plain at W = {NARROW_W} words (scalar "
+        f"loads), k=4: bit-identical")
+    return len(pick)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: path against path
+# ---------------------------------------------------------------------------
+
+
+def _outputs_equal(a, b) -> bool:
+    same = all(equal(getattr(a.result, f), getattr(b.result, f))
+               for f in a.result._fields)
+    for fa, fb in ((a.open_fdr, b.open_fdr), (a.std_fdr, b.std_fdr)):
+        same = same and all(equal(getattr(fa, f), getattr(fb, f))
+                            for f in fa._fields)
+    return same
+
+
+def phase_paths(torch, pipe, ds):
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import encode_backends
+    from repro_torch.core.pipeline import OMSConfig, OMSPipeline
+    from repro_torch.data.spectra import LibraryConfig, SpectraSet, make_dataset
+
+    n = PATH_CHECK_QUERIES
+    sub = SpectraSet(*(x[:n] for x in ds.queries))
+    plain_pipe_cfg = dataclasses.replace(pipe.cfg, encode_backend="word_tiled")
+    kern_hvs, kqp, kqc = pipe.encode_queries(sub)
+    plain_hvs, pqp, pqc = encode_backends.preprocess_encode(
+        sub.mz, sub.intensity, sub.pmz, sub.charge, pipe.codebooks,
+        plain_pipe_cfg.preprocess_params, backend="word_tiled",
+        batch=plain_pipe_cfg.encode_batch)
+    require(equal(kern_hvs, plain_hvs) and equal(kqp, pqp) and equal(kqc, pqc),
+            "query HVs differ between pallas and word_tiled")
+    kern = pipe.search_encoded(kern_hvs, kqp, kqc, backend="fused")
+    plain = pipe.search_encoded(plain_hvs, pqp, pqc, backend="vpu")
+    torch.cuda.synchronize()
+    require(_outputs_equal(kern, plain),
+            "(fused, pallas) and (vpu, word_tiled) disagree on the full DB")
+    log(f"[paths] {n} queries: (fused, pallas) == (vpu, word_tiled) against the "
+        f"full DB — 6 SearchResult arrays and both FDR results identical "
+        f"(open identifications {int(kern.open_fdr.n_accepted)})")
+
+    # Re-encode a library slice with word_tiled; find the same rows in the DB.
+    lib = SpectraSet(*(x[:SLICE_ROWS] for x in ds.refs))
+    hv, _, _ = encode_backends.preprocess_encode(
+        lib.mz, lib.intensity, lib.pmz, lib.charge, pipe.codebooks,
+        pipe.cfg.preprocess_params, backend="word_tiled", batch=512)
+    orig = pipe.db.orig_idx
+    rows = torch.nonzero((orig >= 0) & (orig < SLICE_ROWS)).reshape(-1)
+    rows = rows[torch.argsort(orig[rows])]
+    require(equal(pipe.db.hvs[rows], hv),
+            "library HVs built by the hdencode kernel differ from word_tiled")
+    log(f"[paths] {SLICE_ROWS}-row library slice: kernel-built DB rows == "
+        f"word_tiled re-encode")
+
+    # A small dataset: kernels on the card against plain versions on the CPU.
+    small = make_dataset(LibraryConfig(n_refs=1024, n_queries=64, seed=SEED + 1))
+    cfg = OMSConfig(dim=1024, bin_size=0.5, max_r=256, top_k=2)
+    on_card = OMSPipeline(dataclasses.replace(cfg, backend="fused",
+                                              encode_backend="pallas"),
+                          small.refs, device=DEVICE)
+    on_cpu = OMSPipeline(cfg, small.refs, device="cpu")
+    a = on_card.search(small.queries)
+    b = on_cpu.search(small.queries)
+    same_db = all(equal(getattr(on_card.db, f).cpu(), getattr(on_cpu.db, f))
+                  for f in ("hvs", "pmz", "charge", "is_decoy", "orig_idx"))
+    a_cpu = type(a)(*(type(x)(*(t.cpu() for t in x)) for x in a))
+    require(same_db and _outputs_equal(a_cpu, b),
+            "small dataset: card kernels disagree with CPU plain versions")
+    hit = np.mean(a.result.open_idx[:, 0].cpu().numpy() == small.query_source)
+    log(f"[paths] small dataset (1024 refs, 64 queries, dim 1024, top_k 2): card "
+        f"(fused, pallas) == CPU (vpu, word_tiled); open recall@1 {hit:.3f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: times and bounds
+# ---------------------------------------------------------------------------
+
+
+def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
+    from repro_torch.core import encode_backends
+    from repro_torch.data.spectra import SpectraSet
+    from repro_torch.kernels.hamming import ops as fs_ops
+    from repro_torch.kernels.hamming import ref as fs_ref
+    from repro_torch.kernels.hdencode import ops as hd_ops
+    from repro_torch.kernels.hdencode import ref as hd_ref
+    import numpy as np
+
+    clk, n_sms = env["clock_hz"], env["n_sms"]
+    int_rate = INT32_OPS_PER_CLK_SM * n_sms * clk
+    popc_rate = POPC_PER_CLK_SM * n_sms * clk
+    cb = pipe.codebooks
+    W = cb.id_hvs.shape[1]
+
+    # hdencode at its main-path launch shape: one ENCODE_BATCH of library
+    # spectra, preprocessed as the ingest does.
+    lib = SpectraSet(*(x[:ENCODE_BATCH] for x in ds.refs))
+    pre = encode_backends._preprocess(
+        *(torch.as_tensor(x, device=DEVICE) for x in lib), pipe.cfg.preprocess_params)
+    hd_args = (pre.bins, pre.levels, pre.mask, cb.id_hvs, cb.level_hvs, cb.tiebreak)
+    hd_out = hd_ops.hdencode(*hd_args)
+    hd_plain = hd_ref.hdencode(*hd_args)
+    require(equal(hd_out, hd_plain), "hdencode timing shape: kernel != plain")
+    hd_ms = cuda_ms(lambda: hd_ops.hdencode(*hd_args))
+    hd_plain_ms = cuda_ms(lambda: hd_ref.hdencode(*hd_args))
+    B, P = pre.bins.shape
+    n_valid = int(pre.mask.sum())
+    # The least work the function needs, per (valid peak, word): one XOR to
+    # bind, then a carry-save add into a bit-sliced counter (a full adder is
+    # two LOP3s and retires one word, so ~2 ops per peak word); per output
+    # word: the majority compare of a ceil(log2(P+1))-plane count against n/2
+    # plus its tie test (~2 ops per plane) and the tie-break select.
+    planes = max(1, int(P).bit_length())
+    hd_ops_n = n_valid * W * 3 + B * W * (2 * planes + 1)
+    # Bytes: peaks, the codebook rows this batch touches, tiebreak, output.
+    valid_bins = torch.unique(pre.bins[pre.mask]).numel()
+    valid_levels = torch.unique(pre.levels[pre.mask]).numel()
+    hd_bytes = (B * P * 9 + (valid_bins + valid_levels) * W * 4 + W * 4 + B * W * 4)
+    hd_ops_s, hd_bytes_s = hd_ops_n / int_rate, hd_bytes / HBM_BYTES_PER_S
+    hd_bound = max(hd_ops_s, hd_bytes_s) * 1e3
+    hd_by = "operations" if hd_ops_s >= hd_bytes_s else "bytes"
+
+    # fused_search on the whole main-path batch, kernel and plain version.
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db = pipe.db
+    rk = params.k_blocks * db.max_r
+    nqb = starts.shape[0]
+    fs_args = (qh, qp, qc, db.hvs, db.pmz, db.charge, starts)
+    kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=params.top_k,
+              ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+    fs_ms = cuda_ms(lambda: fs_ops.fused_search(*fs_args, **kw))
+    # The plain version materialises a (16, rk, W) tile per block (~20 s a
+    # batch): its comparison call is its warm-up, then a few timed runs.
+    fs_err = max_abs_err(zip(fs_ops.fused_search(*fs_args, **kw),
+                             fs_ref.fused_search(*fs_args, **kw)))
+    require(fs_err == 0, "fused_search on the whole main-path batch: kernel != plain")
+    fs_plain_ms = cuda_ms(lambda: fs_ref.fused_search(*fs_args, **kw),
+                          iters=FUSED_PLAIN_ITERS, warmup=False)
+    pairs = qh.shape[0] * rk
+    # Operations: the cheaper of two routes to the same Hamming tile — a popc
+    # per (pair, word), or 2 * dim int8 tensor-core ops per pair (a +-1 dot).
+    popc_s = pairs * W / popc_rate
+    mma_s = pairs * pipe.cfg.dim * 2 / INT8_TENSOR_OPS_PER_S
+    scanned = torch.unique(starts).cpu().numpy()
+    covered = np.zeros(db.n_rows, bool)
+    for s in scanned:
+        covered[s:s + rk] = True
+    fs_bytes = (int(covered.sum()) * (W * 4 + 8) + qh.numel() * 4 + qh.shape[0] * 8
+                + starts.numel() * 4 + 4 * qh.shape[0] * params.top_k * 4)
+    fs_ops_s, fs_bytes_s = min(popc_s, mma_s), fs_bytes / HBM_BYTES_PER_S
+    fs_bound = max(fs_ops_s, fs_bytes_s) * 1e3
+    fs_by = "operations" if fs_ops_s >= fs_bytes_s else "bytes"
+    log(f"[times] hdencode ({B} x {P} peaks, {n_valid} valid, {valid_bins} bins "
+        f"touched, dim {cb.dim}): kernel {hd_ms:.4f} ms, plain {hd_plain_ms:.4f} ms, "
+        f"bound {hd_bound:.4f} ms ({hd_by}; ops {hd_ops_s * 1e3:.4f} ms, bytes "
+        f"{hd_bytes_s * 1e3:.4f} ms)")
+    log(f"[times] fused_search ({qh.shape[0]} queries, {nqb} blocks x {rk} rows, "
+        f"{pairs:.4e} pairs): kernel {fs_ms:.3f} ms, plain {fs_plain_ms:.1f} ms "
+        f"(median of {FUSED_PLAIN_ITERS}), bound {fs_bound:.3f} ms ({fs_by}; int8 "
+        f"tensor-core {mma_s * 1e3:.3f} ms, popc {popc_s * 1e3:.3f} ms, bytes "
+        f"{fs_bytes_s * 1e3:.3f} ms)")
+
+    return [
+        {"name": "hdencode", "route": "cuda",
+         "source": "src/repro_torch/kernels/hdencode/csrc/hdencode.cu",
+         "replaces": "src/repro/kernels/hdencode/hdencode.py:46",
+         "tpu_kernel": "hdencode_kernel", "launches": launches["hdencode"],
+         "bit_identical": True, "max_abs_err": max_abs_err([(hd_out, hd_plain)]),
+         "ms": hd_ms, "plain_ms": hd_plain_ms, "bound_ms": hd_bound,
+         "bound_by": hd_by, "library_ms": None,
+         "shape": f"{B}x{P} peaks, dim {cb.dim}"},
+        {"name": "fused_search", "route": "cuda",
+         "source": "src/repro_torch/kernels/hamming/csrc/fused_search.cu",
+         "replaces": "src/repro/kernels/hamming/hamming.py:102",
+         "tpu_kernel": "fused_search_kernel", "launches": launches["fused_search"],
+         "bit_identical": True, "max_abs_err": fs_err,
+         "ms": fs_ms, "plain_ms": fs_plain_ms, "bound_ms": fs_bound,
+         "bound_by": fs_by, "library_ms": None,
+         "shape": f"{qh.shape[0]} queries x {rk} rows, k={params.top_k}",
+         "popc_route_bound_ms": max(popc_s, fs_bytes_s) * 1e3},
+    ]
+
+
+def main() -> int:
+    if not (HERE / "src" / "repro_torch").is_dir():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
+             "checkout of the repository")
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+    from repro_torch.core.pipeline import OMSConfig, _make_codebooks
+    from repro_torch.data.spectra import iprg2012_config, make_dataset
+
+    t_all = time.perf_counter()
+    env = phase_environment(torch)
+    phase_build()
+
+    cfg = OMSConfig(backend="fused", encode_backend="pallas",
+                    encode_batch=ENCODE_BATCH, seed=SEED)
+    phase_hdencode_check(torch, _make_codebooks(cfg, torch.device(DEVICE)))
+
+    t0 = time.perf_counter()
+    lib_cfg = iprg2012_config(scale=1.0, seed=SEED)
+    ds = make_dataset(lib_cfg)
+    log(f"[data] iPRG2012 scale: {lib_cfg.n_refs} library spectra, "
+        f"{lib_cfg.n_queries} queries, {lib_cfg.max_peaks} peaks "
+        f"(numpy, seed {SEED}) in {time.perf_counter() - t0:.1f}s")
+    pipe, hvs, q_pmz, q_charge, launches = phase_main_path(torch, ds, cfg)
+    phase_fused_check(torch, pipe, hvs, q_pmz, q_charge)
+    phase_paths(torch, pipe, ds)
+    kernels = phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds)
+    log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"kernels": kernels}))
+    print(env["smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

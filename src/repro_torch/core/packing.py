@@ -1,0 +1,69 @@
+"""Binary hypervector bit-packing and Hamming primitives.
+
+Counterpart of ``repro.core.packing``. Packed HVs are ``torch.int32``
+tensors holding the reference's uint32 bit patterns (``ndarray.view(
+np.int32)``): torch has no shifts on ``uint32`` and no popcount op, and on
+int32 ``>>`` is arithmetic, so every shift here is followed by a mask.
+Bits are LSB-first within a word, as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+WORD_BITS = 32
+
+
+def n_words(dim: int) -> int:
+    if dim % WORD_BITS != 0:
+        raise ValueError(f"Dhv must be a multiple of {WORD_BITS}, got {dim}")
+    return dim // WORD_BITS
+
+
+def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor with the same bit pattern."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Pack (..., D) {0,1} bits into (..., D//32) int32 words (LSB-first)."""
+    d = bits.shape[-1]
+    w = n_words(d)
+    b = bits.to(torch.int64).reshape(*bits.shape[:-1], w, WORD_BITS)
+    weights = torch.ones((), dtype=torch.int64, device=bits.device) << torch.arange(
+        WORD_BITS, dtype=torch.int64, device=bits.device)
+    return to_int32_bits((b * weights).sum(dim=-1))
+
+
+def unpack_bits(words: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    """Unpack (..., W) int32 words into (..., W*32) {0,1} uint8 bits."""
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    out = bits.reshape(*words.shape[:-1], words.shape[-1] * WORD_BITS).to(torch.uint8)
+    if dim is not None:
+        out = out[..., :dim]
+    return out
+
+
+def popcount(words: torch.Tensor) -> torch.Tensor:
+    """Per-word popcount of int32 words (SWAR), int32 result.
+
+    The sign bit is counted apart so every SWAR step runs on non-negative
+    values and no int32 arithmetic can overflow.
+    """
+    v = words & 0x7FFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return (v & 0x3F) + (words < 0).to(torch.int32)
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between packed HVs; broadcasts over leading dims."""
+    return popcount(a ^ b).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_matrix_packed(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """All-pairs Hamming: q (Q, W) x r (R, W) -> (Q, R) int32 (backend ``vpu``)."""
+    return popcount(q[:, None, :] ^ r[None, :, :]).sum(dim=-1, dtype=torch.int32)

@@ -1,0 +1,117 @@
+"""Wrapper of the CUDA fused dual-window search kernel (csrc/fused_search.cu).
+
+On CPU tensors it runs the plain version (:mod:`.ref`); on CUDA tensors it
+launches the kernel or raises — there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.blocking import PAD_PMZ
+from repro_torch.kernels import _build
+from repro_torch.kernels.hamming import ref
+
+QT = 16            # queries per kernel tile (csrc: QT)
+THREADS = 256      # threads per CTA (csrc: THREADS)
+K_MAX = 16         # largest top_k the kernel keeps (csrc: KMAX)
+# Padding queries carry this charge, which no reference row has.
+PAD_Q_CHARGE = -(2 ** 30)
+
+launches = _build.LaunchCounter()
+
+
+def n_splits_for(n_tiles: int, rk: int, n_sms: int) -> int:
+    """CTAs per query tile: enough to put ~8 CTAs on every SM even for a
+    handful of tiles, but never fewer than THREADS rows per CTA."""
+    want = -(-8 * n_sms // max(n_tiles, 1))
+    return max(1, min(want, -(-rk // THREADS)))
+
+
+def _pad_blocks(x, nqb, q_block, per_block, value):
+    """(nqb*q_block, ...) -> (nqb*per_block, ...), each block padded."""
+    xb = x.reshape(nqb, q_block, *x.shape[1:])
+    pad = xb.new_full((nqb, per_block - q_block, *x.shape[1:]), value)
+    return torch.cat([xb, pad], dim=1).reshape(nqb * per_block, *x.shape[1:])
+
+
+def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
+                 *, q_block: int, rk: int, dim: int, k: int,
+                 ppm_tol: float = 20.0, open_tol_da: float = 75.0):
+    """Dual-window top-k for every query block in one launch.
+
+    q_hvs (Qp, W) int32, q_pmz (Qp,) float32, q_charge (Qp,) int32 are the
+    sorted, q_block-padded queries; r_* the whole reference DB; block b
+    scans rows ``[start_rows[b], start_rows[b] + rk)``. Returns (std_sim,
+    std_row, open_sim, open_row), each (Qp, k) int32 with global rows or -1.
+    """
+    if q_hvs.device.type == "cpu":
+        return ref.fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge,
+                                start_rows, q_block=q_block, rk=rk, dim=dim,
+                                k=k, ppm_tol=ppm_tol, open_tol_da=open_tol_da)
+    dev = q_hvs.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_search: unsupported device {dev}")
+    for name, t, dt, nd in (("q_hvs", q_hvs, torch.int32, 2),
+                            ("q_pmz", q_pmz, torch.float32, 1),
+                            ("q_charge", q_charge, torch.int32, 1),
+                            ("r_hvs", r_hvs, torch.int32, 2),
+                            ("r_pmz", r_pmz, torch.float32, 1),
+                            ("r_charge", r_charge, torch.int32, 1),
+                            ("start_rows", start_rows, torch.int32, 1)):
+        _build.check_tensor("fused_search", name, t, dt, nd, dev)
+    Qp, W = q_hvs.shape
+    N = r_hvs.shape[0]
+    if r_hvs.shape[1] != W:
+        raise ValueError(f"fused_search: query width {W} != reference width "
+                         f"{r_hvs.shape[1]}")
+    if q_block < 1 or Qp % q_block or start_rows.shape[0] != Qp // q_block:
+        raise ValueError(f"fused_search: {Qp} queries do not form "
+                         f"{start_rows.shape[0]} blocks of {q_block}")
+    if q_pmz.shape[0] != Qp or q_charge.shape[0] != Qp:
+        raise ValueError("fused_search: query sidecars must have one entry per query")
+    if r_pmz.shape[0] != N or r_charge.shape[0] != N:
+        raise ValueError("fused_search: reference sidecars must have one entry per row")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"fused_search: the CUDA kernel keeps 1..{K_MAX} "
+                         f"winners, got top_k={k}")
+    if not 1 <= rk <= N:
+        raise ValueError(f"fused_search: rk={rk} must be in [1, {N}]")
+    nqb = Qp // q_block
+    if nqb == 0:
+        z = torch.empty((0, k), dtype=torch.int32, device=dev)
+        return z, z, z, z
+
+    per_block = -(-q_block // QT) * QT
+    if per_block != q_block:
+        q_hvs = _pad_blocks(q_hvs, nqb, q_block, per_block, 0)
+        q_pmz = _pad_blocks(q_pmz, nqb, q_block, per_block, 0.0)
+        q_charge = _pad_blocks(q_charge, nqb, q_block, per_block, PAD_Q_CHARGE)
+    tile_start = start_rows.repeat_interleave(per_block // QT)
+    n_tiles = tile_start.shape[0]
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_splits = n_splits_for(n_tiles, rk, n_sms)
+
+    partial = torch.empty((n_tiles, n_splits, 2 * QT, k), dtype=torch.int64,
+                          device=dev)
+    outs = [torch.empty((n_tiles * QT, k), dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    lib = _build.library()
+    rc = lib.fused_search_launch(
+        _build.ptr(q_hvs), _build.ptr(q_pmz), _build.ptr(q_charge),
+        _build.ptr(r_hvs), _build.ptr(r_pmz), _build.ptr(r_charge),
+        _build.ptr(tile_start), _build.ptr(partial),
+        *(_build.ptr(o) for o in outs),
+        ctypes.c_int(n_tiles), ctypes.c_int(N), ctypes.c_int(W),
+        ctypes.c_int(dim), ctypes.c_int(k), ctypes.c_int(rk),
+        ctypes.c_int(n_splits), ctypes.c_float(ref.std_scale(ppm_tol)),
+        ctypes.c_float(float(np.float32(open_tol_da))),
+        ctypes.c_float(PAD_PMZ), _build.stream_ptr(dev))
+    _build.check(rc, "fused_search_launch")
+    launches.count += 1
+    if per_block != q_block:
+        outs = [o.reshape(nqb, per_block, k)[:, :q_block].reshape(Qp, k)
+                for o in outs]
+    return tuple(outs)
