@@ -21,8 +21,34 @@ Phases (any failure exits nonzero; nothing is caught into a success):
   5. kernel times (CUDA events, median of 10 after a warm-up) beside their
      plain versions at the same shapes (fused_search's plain version on the
      whole batch, held bit for bit against the kernel there and timed as
-     the median of 3) and their lower bounds, printed as one ``kernels``
-     JSON line.
+     the median of 3) and their lower bounds.
+  6. the all-pairs tile kernels (hamming_matrix: popc; hamming_mxu: +-1
+     int8 tensor cores) against their plain versions on 8 main-path query
+     blocks at W = 128, at the cascade's prefix widths W = 64 and 8 and at
+     W = 7, and on 2 query blocks against the cascade's 4,194,304-row
+     bucket of gathered rows at W = 128 (the seed pass and the rescore);
+     the fused_search_mxu kernel against its plain version on 8 blocks at
+     k = 1 and k = 4, and at 7 words (dim 224, the scalar-load variant).
+  7. fused_search_mxu against fused_search on the whole batch at k = 1
+     and k = 4: all four arrays bit-identical.
+  8. the kernel backends end to end: search_encoded with kernel_vpu,
+     kernel_mxu and fused_mxu on the full batch, each equal to phase 3's
+     fused result (6 SearchResult arrays, both FDR results); each run's
+     launch counts are set to 0 just before it and read just after.
+  9. the dimension cascade, exact mode, at prefix_words 8 and 64 with
+     fused, kernel_vpu and fused_mxu on the full batch, each equal to the
+     full-width fused result; seed rows, survivors, buckets and stage
+     times are printed. Then margin mode (prefix_margin = half the rest),
+     which prunes: the stage-A keep flags of the whole batch (thresholds
+     from the full scan) through the kernel_vpu and fused_mxu tiles against
+     the plain tile, a strict subset kept; and on the first 512 queries the
+     same three backends' searches against a run whose tile is the plain
+     version (row-chunked), all results and survivor counts equal,
+     survivors a strict subset.
+ 10. times and bounds of the three new kernels (the tiles at one main-path
+     block beside torch._int_mm on pre-unpacked +-1 int8; fused_search_mxu
+     on the whole batch, its plain version run once, compared and timed).
+All five kernels go into one ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the reference package.
@@ -51,6 +77,18 @@ TIMING_ITERS = 10
 
 FUSED_PLAIN_ITERS = 3    # the plain search takes ~20 s per full batch
 NARROW_W = 7             # a word count that takes the kernels' scalar paths
+TILE_CHECK_W = (64, 8, NARROW_W)   # the prefix widths and a scalar-load width
+BUCKET_CHECK_BLOCKS = 2  # query blocks held against the cascade's row bucket
+PLAIN_TILE_ROWS = 1 << 16  # row chunk of the plain tile at bucket sizes
+# The kernel backends of phase 8 and the kernel each of them launches.
+BACKEND_KERNELS = {"kernel_vpu": "hamming_matrix", "kernel_mxu": "hamming_mxu",
+                   "fused_mxu": "fused_search_mxu"}
+CASCADE_PREFIX_WORDS = (8, 64)
+# The cascade's backends and the tile kernel each routes its stages to.
+CASCADE_TILES = {"fused": "hamming_matrix", "kernel_vpu": "hamming_matrix",
+                 "fused_mxu": "hamming_mxu"}
+MARGIN_QUERIES = PATH_CHECK_QUERIES
+PLAIN_TILE_BACKEND = "plain_tile"   # registered by phase 9 for its yardstick
 
 # Device peaks for the lower bounds (NVIDIA H100 SXM data sheet; CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
@@ -284,11 +322,13 @@ def phase_main_path(torch, ds, cfg):
     require(n_id > 0 and np.isfinite(open_hit.mean()), "no identifications")
     for name, n in launches.items():
         require(n > 0, f"the main path launched the {name} kernel {n} times")
-    return pipe, hvs, q_pmz, q_charge, launches
+    return pipe, hvs, q_pmz, q_charge, launches, out
 
 
-def phase_fused_check(torch, pipe, hvs, q_pmz, q_charge) -> int:
-    from repro_torch.kernels.hamming import ops, ref
+def check_blocks(torch, pipe, hvs, q_pmz, q_charge):
+    """FUSED_CHECK_BLOCKS evenly spaced query blocks of the main path: the
+    search params, the fused-kernel arguments restricted to those blocks,
+    and the rows each block scans."""
     import numpy as np
     params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
     QB = params.q_block
@@ -296,11 +336,18 @@ def phase_fused_check(torch, pipe, hvs, q_pmz, q_charge) -> int:
     pick = np.unique(np.linspace(0, nqb - 1, FUSED_CHECK_BLOCKS).astype(np.int64))
     rows = (pick[:, None] * QB + np.arange(QB)[None, :]).reshape(-1)
     rows_t = torch.from_numpy(rows).to(qh.device)
-    rk = params.k_blocks * pipe.db.max_r
     db = pipe.db
     args = (qh[rows_t].contiguous(), qp[rows_t].contiguous(), qc[rows_t].contiguous(),
             db.hvs, db.pmz, db.charge,
             starts[torch.from_numpy(pick).to(qh.device)].contiguous())
+    return params, args, pick, params.k_blocks * db.max_r
+
+
+def phase_fused_check(torch, pipe, hvs, q_pmz, q_charge) -> int:
+    from repro_torch.kernels.hamming import ops, ref
+    params, args, pick, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
+    QB = params.q_block
+    db = pipe.db
     for k in (1, 4):
         kw = dict(q_block=QB, rk=rk, dim=pipe.cfg.dim, k=k,
                   ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
@@ -510,6 +557,365 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the tile kernels and fused_search_mxu against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _block_pairs(pipe, params, args, rk):
+    """(queries, scanned rows) of every checked main-path block."""
+    QB = params.q_block
+    qh, starts = args[0], args[6]
+    return [(qh[b * QB:(b + 1) * QB], pipe.db.hvs[s:s + rk])
+            for b, s in enumerate(starts.tolist())]
+
+
+def plain_tile(q, r, dim=None):
+    """The plain popc tile, row-chunked so that a bucket-sized row set fits
+    (its columns are independent)."""
+    import torch
+    from repro_torch.kernels.hamming import ref as href
+    return torch.cat([href.hamming_matrix(q, r[i:i + PLAIN_TILE_ROWS])
+                      for i in range(0, r.shape[0], PLAIN_TILE_ROWS)], dim=1)
+
+
+def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> None:
+    import numpy as np
+    from repro_torch.core import search
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    from repro_torch.kernels.hamming_mxu import ref as mref
+    params, args, pick, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
+    W = pipe.db.hvs.shape[1]
+    for w in (W, *TILE_CHECK_W):
+        for q, r in _block_pairs(pipe, params, args, rk):
+            q, r = q[:, :w].contiguous(), r[:, :w].contiguous()
+            vpu, mxu = hops.hamming_matrix(q, r), mops.hamming_matrix(q, r, 32 * w)
+            torch.cuda.synchronize()
+            want = href.hamming_matrix(q, r)
+            require(equal(vpu, want), f"hamming_matrix kernel differs from plain "
+                    f"at W = {w}")
+            require(equal(mxu, mref.hamming_matrix(q, r, 32 * w)) and equal(mxu, want),
+                    f"hamming_mxu kernel differs from plain at W = {w}")
+        log(f"[check] hamming_matrix and hamming_mxu kernels == plain on "
+            f"{len(pick)} main-path query blocks ({q.shape[0]} x {r.shape[0]} at "
+            f"W = {w}, dim {32 * w}): bit-identical")
+    # The seed pass and the survivor rescore score each query block against
+    # every real row, gathered in ascending order and padded to the bucket.
+    dim = pipe.cfg.dim
+    rows = np.flatnonzero(pipe.db.orig_idx.cpu().numpy() >= 0)
+    r = search._gather_rows(pipe.db, rows)[0]
+    require(r.shape[0] == search.row_bucket(rows.size), "bucket gather shape")
+    QB = params.q_block
+    for b in np.linspace(0, len(pick) - 1, BUCKET_CHECK_BLOCKS).astype(np.int64):
+        q = args[0][b * QB:(b + 1) * QB].contiguous()
+        vpu, mxu = hops.hamming_matrix(q, r), mops.hamming_matrix(q, r, dim)
+        torch.cuda.synchronize()
+        want = plain_tile(q, r)
+        require(equal(vpu, want), "hamming_matrix kernel differs from plain on "
+                "the row bucket")
+        require(equal(mxu, want), "hamming_mxu kernel differs from plain on the "
+                "row bucket")
+        del vpu, mxu, want
+    log(f"[check] hamming_matrix and hamming_mxu kernels == plain on "
+        f"{BUCKET_CHECK_BLOCKS} main-path query blocks x the cascade's "
+        f"{r.shape[0]}-row bucket ({rows.size} real rows gathered) at "
+        f"W = {r.shape[1]}: bit-identical")
+    del r
+    for k in (1, 4):
+        kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=k,
+                  ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+        got = mops.fused_search(*args, **kw)
+        torch.cuda.synchronize()
+        want = mref.fused_search(*args, **kw)
+        for name, g, w in zip(("std_sim", "std_row", "open_sim", "open_row"), got, want):
+            require(equal(g, w), f"fused_search_mxu kernel differs from plain "
+                    f"({name}, k={k})")
+        log(f"[check] fused_search_mxu kernel == plain on {len(pick)} main-path "
+            f"query blocks x {rk} rows at k={k}: bit-identical")
+    # A word count that is not a multiple of 4 takes the scalar-load variant.
+    db = pipe.db
+    narrow = (args[0][:, :NARROW_W].contiguous(), *args[1:3],
+              db.hvs[:, :NARROW_W].contiguous(), *args[4:])
+    kw = dict(q_block=QB, rk=rk, dim=32 * NARROW_W, k=4,
+              ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+    got = mops.fused_search(*narrow, **kw)
+    torch.cuda.synchronize()
+    want = mref.fused_search(*narrow, **kw)
+    for name, g, w in zip(("std_sim", "std_row", "open_sim", "open_row"), got, want):
+        require(equal(g, w), f"fused_search_mxu kernel differs from plain "
+                f"({name}, W={NARROW_W})")
+    log(f"[check] fused_search_mxu kernel == plain at W = {NARROW_W} words "
+        f"(dim {32 * NARROW_W}, scalar loads), k=4: bit-identical")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: fused_search_mxu against fused_search on the whole batch
+# ---------------------------------------------------------------------------
+
+
+def phase_fused_mxu_batch(torch, pipe, hvs, q_pmz, q_charge) -> None:
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db = pipe.db
+    rk = params.k_blocks * db.max_r
+    args = (qh, qp, qc, db.hvs, db.pmz, db.charge, starts)
+    for k in (1, 4):
+        kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=k,
+                  ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+        popc, mxu = hops.fused_search(*args, **kw), mops.fused_search(*args, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("std_sim", "std_row", "open_sim", "open_row"), popc, mxu):
+            require(equal(a, b), f"fused_mxu differs from fused on the whole "
+                    f"batch ({name}, k={k})")
+        log(f"[check] fused_search_mxu == fused_search on the whole batch "
+            f"({starts.shape[0]} blocks x {rk} rows) at k={k}: all four "
+            f"({qh.shape[0]}, {k}) arrays bit-identical")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the kernel backends end to end
+# ---------------------------------------------------------------------------
+
+
+def _counters():
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    return {"hamming_matrix": hops.matrix_launches, "hamming_mxu": mops.matrix_launches,
+            "fused_search_mxu": mops.launches, "fused_search": hops.launches}
+
+
+def _counted(torch, fn):
+    """Run ``fn`` with every tile/fused launch count set to 0 just before;
+    returns (result, seconds to the device's end, counts read just after)."""
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    return out, t, {n: c.count for n, c in counters.items()}
+
+
+def phase_backends(torch, pipe, hvs, q_pmz, q_charge, fused_out) -> dict:
+    Q = hvs.shape[0]
+    launches = {}
+    for be, kernel in BACKEND_KERNELS.items():
+        out, t_first, counts = _counted(
+            torch, lambda: pipe.search_encoded(hvs, q_pmz, q_charge, backend=be))
+        t0 = time.perf_counter()
+        pipe.search_encoded(hvs, q_pmz, q_charge, backend=be)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        require(_outputs_equal(out, fused_out), f"backend {be} differs from fused "
+                f"on the full batch")
+        require(counts[kernel] > 0, f"backend {be} launched {kernel} "
+                f"{counts[kernel]} times")
+        launches[kernel] = counts[kernel]
+        log(f"[backends] {be}: 6 SearchResult arrays and both FDR results == "
+            f"fused on {Q} queries; first {t_first:.3f}s, warm {t_warm:.3f}s "
+            f"({Q / t_warm:.0f} queries/s); launches {json.dumps(counts)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the dimension cascade
+# ---------------------------------------------------------------------------
+
+
+def _stats_line(stats, n_real) -> str:
+    return (f"seed rows {stats['seed_rows']} (bucket {stats['seed_bucket']}), "
+            f"survivors {stats['survivors']} of {n_real} real rows "
+            f"({stats['survivors'] / n_real:.4f}; bucket "
+            f"{stats['survivor_bucket']}); stages seed {stats['seed_s']:.2f}s, "
+            f"prefix {stats['prefix_s']:.2f}s, rescore {stats['rescore_s']:.2f}s")
+
+
+def phase_cascade(torch, pipe, hvs, q_pmz, q_charge, fused_out) -> None:
+    Q = hvs.shape[0]
+    n_real = int((pipe.db.orig_idx >= 0).sum())
+    for P in CASCADE_PREFIX_WORDS:
+        for be, kernel in CASCADE_TILES.items():
+            stats = {}
+            out, t, counts = _counted(torch, lambda: pipe.search_encoded(
+                hvs, q_pmz, q_charge, backend=be, prefix_words=P, stats=stats))
+            require(_outputs_equal(out, fused_out), f"cascade prefix_words={P} "
+                    f"backend={be} differs from the full-width fused search")
+            require(counts[kernel] > 0, f"cascade backend {be} launched {kernel} "
+                    f"{counts[kernel]} times")
+            log(f"[cascade] prefix_words={P} ({32 * P} bits) backend={be}, exact: "
+                f"== full-width fused on {Q} queries in {t:.2f}s; "
+                f"{_stats_line(stats, n_real)}; launches {json.dumps(counts)}")
+
+
+def phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge) -> None:
+    """Margin mode prunes. First the stage-A keep flags of the whole batch,
+    from the full scan's exact thresholds, through each kernel tile against
+    the plain tile; then margin-mode searches, whose survivors are a strict
+    subset, gathered and rescored: every kernel backend must equal a run
+    whose prefix and rescore tiles are the plain version."""
+    from repro_torch.core import backends, search
+    from repro_torch.kernels.hamming import ops as hops
+    backends.register(PLAIN_TILE_BACKEND, backends.MATRIX, plain_tile)
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db, dim = pipe.db, pipe.cfg.dim
+    n_real = int((db.orig_idx >= 0).sum())
+    run = hops.fused_search(qh, qp, qc, db.hvs, db.pmz, db.charge, starts,
+                            q_block=params.q_block, rk=params.k_blocks * db.max_r,
+                            dim=dim, k=params.top_k, ppm_tol=params.ppm_tol,
+                            open_tol_da=params.open_tol_da)
+    thr_std, thr_open = search.kth_thresholds(run, params.top_k)
+    for P in CASCADE_PREFIX_WORDS:
+        margin = (dim - 32 * P) // 2
+        flags = {}
+        for be in (PLAIN_TILE_BACKEND, "kernel_vpu", "fused_mxu"):
+            p = params._replace(backend=be, prefix_words=P, prefix_margin=margin)
+            flags[be] = search._prefix_flags(db, pipe.prefix_hvs(P),
+                                             qh[:, :P].contiguous(), qp, qc,
+                                             thr_std, thr_open, params=p, dim=dim)
+        kept = int(flags[PLAIN_TILE_BACKEND].sum())
+        require(0 < kept < n_real, f"stage-A flags at prefix_words={P} keep "
+                f"{kept} of {n_real} rows: the check needs a strict subset")
+        for be in ("kernel_vpu", "fused_mxu"):
+            require(equal(flags[be], flags[PLAIN_TILE_BACKEND]), f"stage-A flags "
+                    f"at prefix_words={P} through {be}'s tile differ from the "
+                    f"plain tile")
+        log(f"[cascade] stage-A flags, prefix_words={P} margin={margin}, "
+            f"{starts.shape[0]} blocks, exact thresholds: kernel_vpu and fused_mxu "
+            f"tiles == plain tile; {kept} of {n_real} rows kept")
+    del run, flags
+    n = MARGIN_QUERIES
+    sub = (hvs[:n], q_pmz[:n], q_charge[:n])
+    for P in CASCADE_PREFIX_WORDS:
+        margin = (pipe.cfg.dim - 32 * P) // 2
+        runs = {}
+        for be in (PLAIN_TILE_BACKEND, *CASCADE_TILES):
+            stats = {}
+            out, t, counts = _counted(torch, lambda: pipe.search_encoded(
+                *sub, backend=be, prefix_words=P, prefix_margin=margin,
+                stats=stats))
+            runs[be] = out, stats
+            head = (f"[cascade] prefix_words={P} margin={margin} backend={be} on "
+                    f"{n} queries in {t:.2f}s")
+            if be == PLAIN_TILE_BACKEND:
+                require(stats["survivors"] < n_real, f"margin-mode cascade at "
+                        f"prefix_words={P} kept every row: nothing was pruned")
+                log(f"{head} (plain tile): {_stats_line(stats, n_real)}")
+                continue
+            want, want_stats = runs[PLAIN_TILE_BACKEND]
+            require(_outputs_equal(out, want) and stats["survivors"]
+                    == want_stats["survivors"], f"margin-mode cascade at "
+                    f"prefix_words={P} backend={be} differs from the plain tile")
+            kernel = CASCADE_TILES[be]
+            require(counts[kernel] > 0, f"cascade backend {be} launched {kernel} "
+                    f"{counts[kernel]} times")
+            log(f"{head}: == plain tile (6 SearchResult arrays, both FDR results, "
+                f"survivor count); {_stats_line(stats, n_real)}; launches "
+                f"{json.dumps(counts)}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: times and bounds of the three new kernels
+# ---------------------------------------------------------------------------
+
+
+def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
+                    fused_bound_ms, fused_bound_by):
+    from repro_torch.core import packing
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    from repro_torch.kernels.hamming_mxu import ref as mref
+
+    clk, n_sms = env["clock_hz"], env["n_sms"]
+    popc_rate = POPC_PER_CLK_SM * n_sms * clk
+    dim = pipe.cfg.dim
+    params, args, pick, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
+    q, r = _block_pairs(pipe, params, args, rk)[0]
+    Q, W = q.shape
+    R = r.shape[0]
+    tile = href.hamming_matrix(q, r)
+    vpu_ms = cuda_ms(lambda: hops.hamming_matrix(q, r))
+    vpu_plain_ms = cuda_ms(lambda: href.hamming_matrix(q, r))
+    mxu_ms = cuda_ms(lambda: mops.hamming_matrix(q, r, dim))
+    mxu_plain_ms = cuda_ms(lambda: mref.hamming_matrix(q, r, dim))
+    # Library yardstick: one int8 GEMM on operands unpacked beforehand
+    # (not timed), A padded to the 32 rows its shape rules want.
+    a8 = torch.zeros((32, dim), dtype=torch.int8, device=DEVICE)
+    a8[:Q] = packing.packed_to_pm1(q)
+    b8 = packing.packed_to_pm1(r).t()
+    dot = torch._int_mm(a8, b8)
+    require(equal((dim - dot[:Q]) // 2, tile), "torch._int_mm yardstick != tile")
+    lib_ms = cuda_ms(lambda: torch._int_mm(a8, b8))
+    del a8, b8, dot
+    errs = {"hamming_matrix": max_abs_err([(hops.hamming_matrix(q, r), tile)]),
+            "hamming_mxu": max_abs_err([(mops.hamming_matrix(q, r, dim), tile)])}
+    # The least work for the tile: read the rows and queries once, write the
+    # tile once; operations by the cheaper route (int8 +-1 dot or popc).
+    t_bytes = (R * W * 4 + Q * W * 4 + Q * R * 4) / HBM_BYTES_PER_S
+    t_ops = min(Q * R * W / popc_rate, Q * R * dim * 2 / INT8_TENSOR_OPS_PER_S)
+    t_bound = max(t_bytes, t_ops) * 1e3
+    t_by = "operations" if t_ops >= t_bytes else "bytes"
+
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db = pipe.db
+    fargs = (qh, qp, qc, db.hvs, db.pmz, db.charge, starts)
+    kw = dict(q_block=params.q_block, rk=rk, dim=dim, k=params.top_k,
+              ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+    fm_ms = cuda_ms(lambda: mops.fused_search(*fargs, **kw))
+    fm_out = mops.fused_search(*fargs, **kw)
+    # The plain version on the whole batch runs once: timed and compared.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fm_plain = mref.fused_search(*fargs, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    fm_plain_ms = start.elapsed_time(end)
+    fm_err = max_abs_err(zip(fm_out, fm_plain))
+    require(fm_err == 0, "fused_search_mxu on the whole batch: kernel != plain")
+    log(f"[times] hamming_matrix ({Q} x {R} x {W} words, one main-path block): "
+        f"kernel {vpu_ms:.4f} ms, plain {vpu_plain_ms:.3f} ms, bound {t_bound:.4f} ms "
+        f"({t_by}; bytes {t_bytes * 1e3:.4f} ms, ops {t_ops * 1e3:.4f} ms), "
+        f"torch._int_mm {lib_ms:.4f} ms")
+    log(f"[times] hamming_mxu (same block): kernel {mxu_ms:.4f} ms, plain "
+        f"{mxu_plain_ms:.3f} ms, bound {t_bound:.4f} ms ({t_by})")
+    log(f"[times] fused_search_mxu ({qh.shape[0]} queries, {starts.shape[0]} blocks "
+        f"x {rk} rows, k={params.top_k}): kernel {fm_ms:.3f} ms, plain "
+        f"{fm_plain_ms:.1f} ms (one run, compared bit for bit), bound "
+        f"{fused_bound_ms:.3f} ms ({fused_bound_by})")
+    tile_shape = f"{Q} queries x {R} rows x {W} words (one main-path block)"
+    return [
+        {"name": "hamming_matrix", "route": "cuda",
+         "source": "src/repro_torch/kernels/hamming/csrc/hamming_matrix.cu",
+         "replaces": "src/repro/kernels/hamming/hamming.py:67",
+         "tpu_kernel": "hamming_matrix_kernel",
+         "launches": launches["hamming_matrix"], "bit_identical": True,
+         "max_abs_err": errs["hamming_matrix"], "ms": vpu_ms,
+         "plain_ms": vpu_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
+         "library_ms": lib_ms, "shape": tile_shape},
+        {"name": "hamming_mxu", "route": "cuda",
+         "source": "src/repro_torch/kernels/hamming_mxu/csrc/hamming_mxu.cu",
+         "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:60",
+         "tpu_kernel": "hamming_mxu_kernel",
+         "launches": launches["hamming_mxu"], "bit_identical": True,
+         "max_abs_err": errs["hamming_mxu"], "ms": mxu_ms,
+         "plain_ms": mxu_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
+         "library_ms": lib_ms, "shape": tile_shape},
+        {"name": "fused_search_mxu", "route": "cuda",
+         "source": "src/repro_torch/kernels/hamming_mxu/csrc/fused_search_mxu.cu",
+         "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:99",
+         "tpu_kernel": "fused_search_mxu_kernel",
+         "launches": launches["fused_search_mxu"], "bit_identical": True,
+         "max_abs_err": fm_err, "ms": fm_ms, "plain_ms": fm_plain_ms,
+         "bound_ms": fused_bound_ms, "bound_by": fused_bound_by,
+         "library_ms": None,
+         "shape": f"{qh.shape[0]} queries x {rk} rows, k={params.top_k}"},
+    ]
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
@@ -534,10 +940,17 @@ def main() -> int:
     log(f"[data] iPRG2012 scale: {lib_cfg.n_refs} library spectra, "
         f"{lib_cfg.n_queries} queries, {lib_cfg.max_peaks} peaks "
         f"(numpy, seed {SEED}) in {time.perf_counter() - t0:.1f}s")
-    pipe, hvs, q_pmz, q_charge, launches = phase_main_path(torch, ds, cfg)
+    pipe, hvs, q_pmz, q_charge, launches, out = phase_main_path(torch, ds, cfg)
     phase_fused_check(torch, pipe, hvs, q_pmz, q_charge)
     phase_paths(torch, pipe, ds)
     kernels = phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds)
+    phase_tile_check(torch, pipe, hvs, q_pmz, q_charge)
+    phase_fused_mxu_batch(torch, pipe, hvs, q_pmz, q_charge)
+    launches.update(phase_backends(torch, pipe, hvs, q_pmz, q_charge, out))
+    phase_cascade(torch, pipe, hvs, q_pmz, q_charge, out)
+    phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge)
+    kernels += phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
+                               kernels[1]["bound_ms"], kernels[1]["bound_by"])
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,9 @@ Counterpart of the resident half of ``repro.core.pipeline``: the paper's
 Fig. 1b flow on a library held on the device. ``OMSPipeline(cfg, refs)``
 encodes the library and its row-keyed decoys chunk by chunk, merges the
 (charge, pmz)-sorted chunks into the blocked DB and uploads it once;
-``search`` encodes queries and runs the blocked dual-window search and the
-target-decoy FDR filter.
+``search`` encodes queries and runs the blocked dual-window search (or,
+with ``prefix_words``, the dimension cascade) and the target-decoy FDR
+filter.
 
 The pipeline runs on the card unless the caller passes ``device="cpu"``
 (the tests do); without a GPU, ``device=None`` raises.
@@ -50,7 +51,7 @@ class OMSConfig:
     add_decoys: bool = True
     backend: str = "vpu"         # any name in repro_torch.core.backends.names()
     top_k: int = 1               # ranked winners per query and window
-    prefix_words: int = 0        # dimension cascade: not ported yet, keep 0
+    prefix_words: int = 0        # dimension cascade (0 = full-width scan)
     prefix_margin: int = -1
     prefix_seed_da: float = 1.0
     encode_backend: str = "word_tiled"   # any encode_backends.names() entry
@@ -151,6 +152,26 @@ class OMSPipeline:
                                    np.full((len(pmz),), is_d), orig))
         self.db: ReferenceDB = build_reference_db_from_runs(
             runs, max_r=cfg.max_r, device=self.device)
+        self._host_sidecars_cache = None
+        self._prefix_hvs: dict[int, torch.Tensor] = {}
+
+    @property
+    def _host_sidecars(self) -> tuple[np.ndarray, np.ndarray]:
+        """(pmz, charge) row sidecars as host numpy, fetched once: the
+        dimension cascade's seed planning should not pay a library-sized
+        device-to-host copy per call."""
+        if self._host_sidecars_cache is None:
+            self._host_sidecars_cache = (self.db.pmz.cpu().numpy(),
+                                         self.db.charge.cpu().numpy())
+        return self._host_sidecars_cache
+
+    def prefix_hvs(self, prefix_words: int) -> torch.Tensor:
+        """Contiguous (n_rows, prefix_words) copy of the DB's leading words,
+        made once per width (the kernels take no strided column slice)."""
+        if prefix_words not in self._prefix_hvs:
+            self._prefix_hvs[prefix_words] = (
+                self.db.hvs[:, :prefix_words].contiguous())
+        return self._prefix_hvs[prefix_words]
 
     def encode_queries(self, queries: SpectraSet
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -184,8 +205,10 @@ class OMSPipeline:
                        backend: str | None = None,
                        top_k: int | None = None,
                        prefix_words: int | None = None,
-                       prefix_margin: int | None = None) -> OMSOutput:
-        """Search already-encoded query HVs."""
+                       prefix_margin: int | None = None,
+                       stats: dict | None = None) -> OMSOutput:
+        """Search already-encoded query HVs. ``stats``, when given, receives
+        the dimension cascade's stage counts and times."""
         # One host copy of the query sidecars, shared by plan_search and the
         # padding plan.
         qp_np = q_pmz.cpu().numpy()
@@ -194,8 +217,15 @@ class OMSPipeline:
                                     open_tol_da=open_tol_da, backend=backend,
                                     top_k=top_k, prefix_words=prefix_words,
                                     prefix_margin=prefix_margin)
+        cascade = {}
+        if params.prefix_words:
+            row_pmz, row_charge = self._host_sidecars
+            cascade = dict(row_pmz_np=row_pmz, row_charge_np=row_charge,
+                           prefix_hvs=self.prefix_hvs(params.prefix_words),
+                           stats=stats)
         result = oms_search(self.db, hvs, q_pmz, q_charge, params,
-                            dim=self.cfg.dim, q_charge_np=qc_np)
+                            dim=self.cfg.dim, q_pmz_np=qp_np,
+                            q_charge_np=qc_np, **cascade)
 
         def _fdr(row, sim):
             valid = row >= 0

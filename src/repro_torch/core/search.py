@@ -1,6 +1,6 @@
 """Blocked dual-window OMS search (paper §II-B orchestrator + §II-C kernel).
 
-Counterpart of the full-width half of ``repro.core.search``. Queries are
+Counterpart of the resident half of ``repro.core.search``. Queries are
 (charge, pmz)-sorted and padded so no block of ``q_block`` queries
 straddles a charge; each query block scans ``k_blocks * max_r`` contiguous
 reference rows from a start row found by ``searchsorted`` on monotonic
@@ -14,17 +14,24 @@ float32 key arithmetic. A ``fused`` backend then covers every query block
 in one call; ``matrix`` backends run block by block through the plain
 fused version (``kernels/hamming/ref.py``), whose ``dual_window_topk`` is
 the reference's ``_find_topk_dual``.
+
+With ``prefix_words > 0`` the scan runs as the dimension cascade: a seed
+pass rescoring rows near each precursor sets exact per-query thresholds, a
+prefix-word scan flags every row whose best-case full similarity reaches
+them, and the survivors are rescored at full width — bit-identical to the
+full scan in exact mode.
 """
 from __future__ import annotations
 
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import backends as backends_mod
-from repro_torch.core.blocking import ReferenceDB
+from repro_torch.core.blocking import PAD_PMZ, ReferenceDB
 from repro_torch.kernels.hamming import ref as href
 
 # Charge multiplier for monotonic (charge, pmz) sort keys; pmz is clipped
@@ -41,10 +48,12 @@ class SearchParams(NamedTuple):
     backend: str = "vpu"           # any name in repro_torch.core.backends.names()
     exhaustive: bool = False       # True = HyperOMS-style full scan (baseline)
     top_k: int = 1                 # ranked winners kept per query and window
-    # Dimension cascade: not ported yet (prefix_words must stay 0).
-    prefix_words: int = 0
-    prefix_margin: int = -1
-    prefix_seed_da: float = 1.0
+    # -- dimension cascade (FeNOMS-style prefix-word pruning) ---------------
+    prefix_words: int = 0          # stage-A packed words (0 = full-width scan)
+    prefix_margin: int = -1        # survivor slack in bits; -1 = exact bound
+    #                                (dim - 32*prefix_words: bit-identical)
+    prefix_seed_da: float = 1.0    # seed-pass precursor window (Da) that
+    #                                bootstraps per-query thresholds
 
 
 class SearchResult(NamedTuple):
@@ -119,6 +128,213 @@ def _search_sorted_padded(db: ReferenceDB, q_hvs, q_pmz, q_charge, *,
     return href.fused_search(*args, **kw, tile_fn=be.fn)
 
 
+# ---------------------------------------------------------------------------
+# Dimension cascade: prefix-word prune + exact full-width rescore
+# ---------------------------------------------------------------------------
+#
+# Stage A scans every in-window candidate over only the first
+# ``prefix_words`` (P) packed words: ``ham_p`` mismatches over 32*P bits.
+# The remaining ``rest = dim - 32*P`` bits add at most ``rest`` mismatches,
+# so the full similarity is bounded by ub = (32*P - ham_p) + rest. A row
+# survives iff ub >= T for a per-(query, window) threshold T: in exact mode
+# the k-th best full similarity over a subset of the query's in-window
+# candidates (the seed pass), so no true top-k row (nor a tie) is pruned and
+# the stage-B rescore of the survivors is bit-identical to the full scan.
+# ``prefix_margin >= 0`` replaces the slack ``rest`` with a smaller one:
+# harder pruning that may drop true winners.
+
+_NEG_THRESHOLD = -(1 << 30)     # "no threshold yet": everything in-window survives
+# Floor of the survivor-set padding buckets: the reference's
+# repro.tune.promoted.DEFAULT_ROW_BUCKET_LO (per-device tuning not ported).
+DEFAULT_ROW_BUCKET_LO = 64
+
+
+def prefix_margin_bits(params: SearchParams, dim: int) -> int:
+    """Effective stage-A slack in bits (the exact bound unless overridden)."""
+    rest = dim - 32 * params.prefix_words
+    if params.prefix_margin < 0:
+        return rest
+    return min(params.prefix_margin, rest)
+
+
+def _prefix_flags(db: ReferenceDB, prefix_hvs, q_hvs_p, q_pmz, q_charge,
+                  thr_std, thr_open, *, params: SearchParams, dim: int):
+    """Stage A: (n_rows,) bool survivor flags — the OR over query blocks of
+    the bound-based keep decision on each block's scanned rows.
+
+    ``prefix_hvs`` (n_rows, P) and ``q_hvs_p`` (Qp, P) hold only the first
+    ``params.prefix_words`` words, contiguous; ``thr_std``/``thr_open`` are
+    per padded-query full-similarity thresholds (``_NEG_THRESHOLD`` where
+    unknown)."""
+    p = params
+    pdim = 32 * p.prefix_words
+    margin = prefix_margin_bits(p, dim)
+    QB = p.q_block
+    rk = scan_rows_per_block(db, p)
+    tile = backends_mod.hamming_tile_fn(p.backend)
+    starts = block_start_rows(db, p, q_pmz, q_charge)
+    flags = torch.zeros((db.n_rows,), dtype=torch.bool, device=db.device)
+    for b, s in enumerate(starts.tolist()):
+        qs, rs = slice(b * QB, (b + 1) * QB), slice(s, s + rk)
+        ub = (pdim - tile(q_hvs_p[qs], prefix_hvs[rs], pdim)) + margin
+        std_m, open_m = href.window_masks(
+            q_pmz[qs], db.pmz[rs], q_charge[qs], db.charge[rs],
+            ppm_tol=p.ppm_tol, open_tol_da=p.open_tol_da)
+        keep = ((std_m & (ub >= thr_std[qs, None]))
+                | (open_m & (ub >= thr_open[qs, None])))
+        flags[rs] |= keep.any(dim=0)
+    return flags
+
+
+def _rescore_rows_padded(r_hvs, r_rows, r_pmz, r_charge, q_hvs, q_pmz,
+                         q_charge, *, params: SearchParams, dim: int):
+    """Stage B / seed pass: exact dual-window top-k over a gathered row set.
+
+    ``r_*`` are (S,) padded candidate arrays — global DB rows in ASCENDING
+    order (selection ties resolve to the lowest row, as in the full scan),
+    padding entries carrying ``r_pmz == PAD_PMZ`` / ``r_rows == -1``. Every
+    query block is scored against the whole set, as the reference does.
+    Returns four (Qp, top_k) int32 tensors, rows global."""
+    p = params
+    QB = p.q_block
+    S = r_rows.shape[0]
+    tile = backends_mod.hamming_tile_fn(p.backend)
+    outs = []
+    for b in range(q_hvs.shape[0] // QB):
+        qs = slice(b * QB, (b + 1) * QB)
+        ss, sa, os_, oa = href.fused_search_block(
+            q_hvs[qs], r_hvs, q_pmz[qs], r_pmz, q_charge[qs], r_charge,
+            dim=dim, k=p.top_k, ppm_tol=p.ppm_tol, open_tol_da=p.open_tol_da,
+            tile_fn=tile)
+        outs.append((ss, torch.where(ss >= 0, r_rows[sa.clamp(0, S - 1).long()], -1),
+                     os_, torch.where(os_ >= 0, r_rows[oa.clamp(0, S - 1).long()], -1)))
+    return tuple(torch.cat(col) for col in zip(*outs))
+
+
+def kth_thresholds(run, k: int):
+    """Per-query (thr_std, thr_open) int32 thresholds from (Qp, k) winner
+    tensors ``run = (std_sim, std_row, open_sim, open_row)``: the k-th sim
+    where a k-th winner exists, ``_NEG_THRESHOLD`` otherwise."""
+    thr_std = torch.where(run[1][:, k - 1] >= 0, run[0][:, k - 1], _NEG_THRESHOLD)
+    thr_open = torch.where(run[3][:, k - 1] >= 0, run[2][:, k - 1], _NEG_THRESHOLD)
+    return thr_std, thr_open
+
+
+def plan_seed_rows(row_pmz: np.ndarray, row_charge: np.ndarray,
+                   q_pmz_np: np.ndarray, q_charge_np: np.ndarray,
+                   tol_da: float) -> np.ndarray:
+    """Host seed plan: ascending DB rows within ``tol_da`` Da (same charge)
+    of ANY query precursor. Within one charge the layout's real rows are
+    pmz-ascending, so per charge this is two searchsorteds."""
+    n = row_pmz.shape[0]
+    mark = np.zeros((n,), bool)
+    for c in np.unique(q_charge_np):
+        rows_c = np.flatnonzero((row_charge == c) & (row_pmz < np.float32(
+            np.finfo(np.float32).max)))
+        if rows_c.size == 0:
+            continue
+        pm = row_pmz[rows_c]
+        q = np.sort(q_pmz_np[q_charge_np == c])
+        lo = np.searchsorted(q, pm - tol_da, side="left")
+        hi = np.searchsorted(q, pm + tol_da, side="right")
+        mark[rows_c[hi > lo]] = True
+    return np.flatnonzero(mark).astype(np.int64)
+
+
+def row_bucket(n: int, *, lo: int = DEFAULT_ROW_BUCKET_LO) -> int:
+    """Power-of-two padding bucket (floor ``lo``) for a candidate-set size,
+    so the rescore sees a bounded family of shapes."""
+    b = lo
+    while b < max(n, 1):
+        b <<= 1
+    return b
+
+
+def pad_candidate_rows(rows: np.ndarray, bucket: int):
+    """(rows_padded, valid) host arrays for a candidate set: rows stay
+    ascending, padding gathers row 0 but is masked out via PAD sidecars."""
+    S = int(rows.shape[0])
+    rows_pad = np.zeros((bucket,), np.int64)
+    rows_pad[:S] = rows
+    valid = np.zeros((bucket,), bool)
+    valid[:S] = True
+    return rows_pad, valid
+
+
+def _gather_rows(db: ReferenceDB, rows_np: np.ndarray):
+    """(r_hvs, r_rows, r_pmz, r_charge) of a bucket-padded candidate set."""
+    rows_pad, valid = pad_candidate_rows(rows_np, row_bucket(rows_np.shape[0]))
+    rows_t = torch.from_numpy(rows_pad).to(db.device)
+    valid_t = torch.from_numpy(valid).to(db.device)
+    return (db.hvs[rows_t],
+            torch.where(valid_t, rows_t.to(torch.int32), -1),
+            torch.where(valid_t, db.pmz[rows_t], PAD_PMZ),
+            torch.where(valid_t, db.charge[rows_t], -1))
+
+
+def _stage_clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _prefix_search_padded(db: ReferenceDB, qh, qp, qc, *, params: SearchParams,
+                          dim: int, row_pmz_np: np.ndarray,
+                          row_charge_np: np.ndarray, qp_np: np.ndarray,
+                          qc_np: np.ndarray, prefix_hvs=None,
+                          stats: dict | None = None):
+    """Resident two-stage cascade over sorted/padded queries: seed pass
+    (exact thresholds) -> stage-A prefix flags over the DB -> stage-B exact
+    rescore of the survivors. Returns the four (Qp, k) tensors of
+    :func:`_search_sorted_padded`, bit-identical in exact mode.
+
+    ``prefix_hvs`` is a contiguous copy of ``db.hvs[:, :prefix_words]``
+    (made here when absent). ``stats``, when given, receives the seed-row,
+    survivor and bucket counts and each stage's seconds (device-synced)."""
+    p = params
+    K = p.top_k
+    P = p.prefix_words
+    dev = db.device
+    if stats is not None:
+        t0 = _stage_clock(dev)
+    seed_rows = plan_seed_rows(row_pmz_np, row_charge_np, qp_np, qc_np,
+                               p.prefix_seed_da)
+    if seed_rows.size:
+        thr_std, thr_open = kth_thresholds(_rescore_rows_padded(
+            *_gather_rows(db, seed_rows), qh, qp, qc, params=p, dim=dim), K)
+    else:
+        thr_std = thr_open = torch.full((qh.shape[0],), _NEG_THRESHOLD,
+                                        dtype=torch.int32, device=dev)
+    if stats is not None:
+        t1 = _stage_clock(dev)
+    if prefix_hvs is None:
+        prefix_hvs = db.hvs[:, :P].contiguous()
+    flags = _prefix_flags(db, prefix_hvs, qh[:, :P].contiguous(), qp, qc,
+                          thr_std, thr_open, params=p, dim=dim)
+    surv = np.flatnonzero(flags.cpu().numpy())
+    if p.prefix_margin >= 0:
+        # Margin mode may prune true winners; folding the seed rows back in
+        # makes it no worse than the seed pass. Extra ascending candidates
+        # never change the exact selection, so exact mode needs no union.
+        surv = np.union1d(surv, seed_rows)
+    if stats is not None:
+        t2 = _stage_clock(dev)
+    if surv.size == 0:
+        z = torch.full((qh.shape[0], K), -1, dtype=torch.int32, device=dev)
+        out = (z, z, z, z)
+    else:
+        out = _rescore_rows_padded(*_gather_rows(db, surv), qh, qp, qc,
+                                   params=p, dim=dim)
+    if stats is not None:
+        t3 = _stage_clock(dev)
+        stats.update(seed_rows=int(seed_rows.size),
+                     seed_bucket=row_bucket(int(seed_rows.size)),
+                     survivors=int(surv.size),
+                     survivor_bucket=row_bucket(int(surv.size)),
+                     seed_s=t1 - t0, prefix_s=t2 - t1, rescore_s=t3 - t2)
+    return out
+
+
 @functools.lru_cache(maxsize=512)
 def _padding_plan(q_block: int, group_sizes: tuple[int, ...]):
     """Row-selection plan for (charge, pmz)-sorted queries: each charge group
@@ -153,10 +369,21 @@ def validate_search_params(params: SearchParams, n_rows: int | None = None) -> N
     if params.prefix_words < 0:
         raise ValueError(
             f"SearchParams.prefix_words must be >= 0, got {params.prefix_words}")
-    if params.prefix_words:
-        raise NotImplementedError(
-            "prefix_words > 0 (the dimension cascade) is not ported yet: "
-            "ROADMAP.md, queue 1 item 13 (cascade + dimension cascade)")
+    if params.prefix_words and params.prefix_seed_da <= 0.0:
+        raise ValueError(
+            f"SearchParams.prefix_seed_da must be > 0 when prefix_words is "
+            f"set, got {params.prefix_seed_da!r}")
+
+
+def validate_prefix_words(params: SearchParams, dim: int) -> None:
+    """The prefix must leave at least one full-width word of headroom —
+    ``prefix_words == n_words`` would be a slower full scan in disguise."""
+    n_words = dim // 32
+    if params.prefix_words >= n_words:
+        raise ValueError(
+            f"SearchParams.prefix_words={params.prefix_words} must be < "
+            f"n_words={n_words} (dim={dim}); use prefix_words=0 for a "
+            f"full-width scan")
 
 
 def sort_pad_plan(q_pmz: torch.Tensor, q_charge: torch.Tensor, q_block: int, *,
@@ -184,19 +411,42 @@ def sort_pad_plan(q_pmz: torch.Tensor, q_charge: torch.Tensor, q_block: int, *,
 
 def oms_search(db: ReferenceDB, q_hvs: torch.Tensor, q_pmz: torch.Tensor,
                q_charge: torch.Tensor, params: SearchParams, *, dim: int,
-               q_charge_np: np.ndarray | None = None) -> SearchResult:
+               q_pmz_np: np.ndarray | None = None,
+               q_charge_np: np.ndarray | None = None,
+               row_pmz_np: np.ndarray | None = None,
+               row_charge_np: np.ndarray | None = None,
+               prefix_hvs: torch.Tensor | None = None,
+               stats: dict | None = None) -> SearchResult:
     """Full OMS search: sort queries, run the blocked scan, unsort, map rows
     back to original library indices, apply the min-similarity threshold.
-    ``q_charge_np`` is an optional host copy of the query charges (saves a
-    device-to-host copy for the padding plan)."""
+
+    ``q_pmz_np``/``q_charge_np`` are optional host copies of the query
+    sidecars (``q_charge_np`` saves a device-to-host copy for the padding
+    plan). With ``params.prefix_words > 0`` the scan runs as the dimension
+    cascade; ``row_pmz_np``/``row_charge_np`` are host copies of the DB
+    sidecars for its seed pass and ``prefix_hvs`` a contiguous copy of
+    ``db.hvs[:, :prefix_words]`` (each made here when absent), and
+    ``stats`` receives its stage counts and times."""
     validate_search_params(params, db.n_rows)
+    if params.prefix_words:
+        validate_prefix_words(params, dim)
     gather, unpad = sort_pad_plan(q_pmz, q_charge, params.q_block,
                                   q_charge_np=q_charge_np)
     # Padding queries keep their charge (the block stays charge-pure) and
     # are dropped on output.
-    std_b, std_row, open_b, open_row = _search_sorted_padded(
-        db, q_hvs[gather], q_pmz[gather], q_charge[gather], params=params,
-        dim=dim)
+    qh, qp, qc = q_hvs[gather], q_pmz[gather], q_charge[gather]
+    if params.prefix_words:
+        std_b, std_row, open_b, open_row = _prefix_search_padded(
+            db, qh, qp, qc, params=params, dim=dim,
+            row_pmz_np=_host(db.pmz) if row_pmz_np is None else row_pmz_np,
+            row_charge_np=(_host(db.charge) if row_charge_np is None
+                           else row_charge_np),
+            qp_np=_host(q_pmz) if q_pmz_np is None else q_pmz_np,
+            qc_np=_host(q_charge) if q_charge_np is None else q_charge_np,
+            prefix_hvs=prefix_hvs, stats=stats)
+    else:
+        std_b, std_row, open_b, open_row = _search_sorted_padded(
+            db, qh, qp, qc, params=params, dim=dim)
     std_b, std_row = std_b[unpad], std_row[unpad]
     open_b, open_row = open_b[unpad], open_row[unpad]
 

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (nvcc -> one shared library).
 
 Every ``**/csrc/*.cu`` under ``repro_torch/kernels`` exposes a plain C
-interface. On first use the sources are compiled for ``sm_90a`` — one
-``nvcc -c`` per source, all started together — and linked into one shared
-library, which is loaded with ``ctypes``. The library lands in
-``<checkout>/build/kernels/<hash>/`` (git-ignored), keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one is
-reused. Nothing here runs at import time.
+interface; device code shared between kernels lives in headers (``*.cuh``,
+``*.h``) under the same ``csrc/`` directories. On first use the sources are
+compiled for ``sm_90a`` — one ``nvcc -c`` per source, all started together
+— and linked into one shared library, which is loaded with ``ctypes``. The
+library lands in ``<checkout>/build/kernels/<hash>/`` (git-ignored), keyed
+by a hash of the sources, the headers and the flags, so an edited source or
+header rebuilds and an unchanged tree is reused. Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -43,6 +45,11 @@ def sources() -> list[Path]:
     return sorted(_KERNELS_DIR.glob("**/csrc/*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(p for ext in ("cuh", "h")
+                  for p in _KERNELS_DIR.glob(f"**/csrc/*.{ext}"))
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -54,10 +61,11 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (neither on PATH nor under CUDA_HOME)")
 
 
-def _digest(srcs: list[Path]) -> str:
+def _digest() -> str:
+    """Hash of the flags and of every source and header, by relative path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
-        h.update(p.name.encode())
+    for p in sorted(sources() + headers()):
+        h.update(p.relative_to(_KERNELS_DIR).as_posix().encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
@@ -67,7 +75,7 @@ def build(log=None) -> Path:
     returns its path. A finished build is reused. ``log`` receives nvcc's
     output (register and shared-memory use from ``-Xptxas -v``)."""
     srcs = sources()
-    out_dir = BUILD_ROOT / _digest(srcs)
+    out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
@@ -124,6 +132,12 @@ _SIGNATURES = {
     # n_tiles, n_rows, W, dim, k, rk, n_splits, std_scale, open_tol,
     # pad_pmz, stream
     "fused_search_launch": ([_P] * 12 + [_I] * 7 + [_F] * 3 + [_P], _I),
+    # the same arguments; requires dim == 32 * W
+    "fused_search_mxu_launch": ([_P] * 12 + [_I] * 7 + [_F] * 3 + [_P], _I),
+    # q, r, out, Q, R, W, stream
+    "hamming_matrix_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    # q, r, out, Q, R, W, dim, stream
+    "hamming_mxu_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
 }
 
 

@@ -1,2 +1,2 @@
-"""Fused dual-window search kernel (counterpart of the fused half of
-``repro.kernels.hamming``)."""
+"""The popc kernels: fused dual-window search and the all-pairs Hamming
+tile (counterpart of ``repro.kernels.hamming``)."""

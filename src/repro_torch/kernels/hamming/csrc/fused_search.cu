@@ -14,7 +14,8 @@
 // pair). This kernel takes the popc route instead, and __popc issues at a
 // quarter of the 32-bit add/xor rate (16 per clock per SM on compute
 // capability 9.0), about 7x slower than the tensor-core bound at the
-// main-path shapes; the int8 formulation is a later kernel.
+// main-path shapes; the int8 formulation is
+// ../../hamming_mxu/csrc/fused_search_mxu.cu.
 //
 // Design:
 //  * One launch covers every query block of the batch. The reference calls
@@ -30,55 +31,14 @@
 //  * A CTA keeps its 16 queries in shared memory (8 KB at dim 4096). Each
 //    thread takes one reference row at a time, reads it with 16-byte loads
 //    and accumulates __popc(q ^ r) for all 16 queries in registers.
-//  * Ranking uses the composite key (sim << 32) | (0xFFFFFFFF - row): a
-//    total order over distinct rows that agrees with (sim desc, row asc),
-//    so any reduction or merge order gives the TPU's sequential answer.
-//    0 marks an empty slot. Each warp keeps its own top-k list per
-//    (query, window) in shared memory; a lane offers its key only when it
-//    beats the list's k-th entry (a ballot), so insertions become rare once
-//    the lists fill. At the end the warps' lists are merged per CTA.
-//  * Masks round exactly as the reference: std_scale = float32(ppm_tol *
-//    1e-6) is rounded once on the host, and the products and differences
-//    use __fmul_rn/__fsub_rn so they are never contracted.
+//  * Ranking, the per-warp winner lists, their merges and the exact mask
+//    rounding are shared with fused_search_mxu.cu (../../csrc/winners.cuh).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "../../csrc/winners.cuh"
+
 namespace {
-
-constexpr int QT = 16;            // queries per tile
-constexpr int NLISTS = 2 * QT;    // (query, window) winner lists per tile
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
-constexpr int KMAX = 16;
-constexpr unsigned FULL = 0xffffffffu;
-
-typedef unsigned long long winner_t;
-
-// Insert `key` into the descending list of length k; the caller has checked
-// that key beats list[k-1].
-__device__ __forceinline__ void insert_desc(winner_t* list, int k, winner_t key) {
-  int i = k - 1;
-  while (i > 0 && list[i - 1] < key) {
-    list[i] = list[i - 1];
-    --i;
-  }
-  list[i] = key;
-}
-
-// Warp-cooperative offer of each lane's key to one shared list.
-__device__ __forceinline__ void offer(winner_t* list, int k, winner_t key, int lane) {
-  winner_t thr = list[k - 1];
-  unsigned m = __ballot_sync(FULL, key > thr);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    const winner_t cand = __shfl_sync(FULL, key, src);
-    if (lane == 0) insert_desc(list, k, cand);
-    __syncwarp();
-    if (lane == src) key = 0ull;
-    thr = list[k - 1];
-    m = __ballot_sync(FULL, key > thr);
-  }
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
@@ -148,67 +108,16 @@ fused_search_partial(const uint32_t* __restrict__ q,
       rp = __ldg(r_pmz + row);
       rc = __ldg(r_charge + row);
     }
-    const bool rvalid = active && rp < pad_pmz;
-    const winner_t row_key = 0xFFFFFFFFull - (uint32_t)row;
+    int sim[QT];
 #pragma unroll
-    for (int i = 0; i < QT; ++i) {
-      const float qp = s_qp[i];
-      const int sim = dim - acc[i];
-      const bool valid = rvalid && s_qc[i] == rc && sim >= 0;
-      const float d = fabsf(__fsub_rn(qp, rp));
-      const winner_t key = ((winner_t)(uint32_t)sim << 32) | row_key;
-      const winner_t ks = (valid && d <= __fmul_rn(qp, std_scale)) ? key : 0ull;
-      const winner_t ko = (valid && d <= open_tol) ? key : 0ull;
-      offer(lists + (size_t)(2 * i) * k, k, ks, lane);
-      offer(lists + (size_t)(2 * i + 1) * k, k, ko, lane);
-    }
+    for (int i = 0; i < QT; ++i) sim[i] = dim - acc[i];
+    offer_row(lists, k, lane, sim, active, rp, rc, row, s_qp, s_qc, std_scale,
+              open_tol, pad_pmz);
   }
   __syncthreads();
-
-  // Merge the warps' lists: one thread per (query, window) list.
-  if (tid < NLISTS) {
-    winner_t best[KMAX];
-    for (int i = 0; i < k; ++i) best[i] = 0ull;
-    for (int wv = 0; wv < NWARPS; ++wv) {
-      const winner_t* src = s_list + ((size_t)wv * NLISTS + tid) * k;
-      for (int i = 0; i < k; ++i) {
-        if (src[i] <= best[k - 1]) break;     // src is descending
-        insert_desc(best, k, src[i]);
-      }
-    }
-    winner_t* out = partial + (((size_t)tile * gridDim.y + split) * NLISTS + tid) * k;
-    for (int i = 0; i < k; ++i) out[i] = best[i];
-  }
-}
-
-// Merge the per-split partial winners of every (tile, list) and decode the
-// keys into sims and global rows (-1/-1 for empty ranks).
-__global__ void fused_search_merge(const winner_t* __restrict__ partial,
-                                   int n_tiles, int n_splits, int k,
-                                   int32_t* std_sim, int32_t* std_row,
-                                   int32_t* open_sim, int32_t* open_row) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n_tiles * NLISTS) return;
-  const int tile = g / NLISTS;
-  const int l = g % NLISTS;
-  winner_t best[KMAX];
-  for (int i = 0; i < k; ++i) best[i] = 0ull;
-  for (int s = 0; s < n_splits; ++s) {
-    const winner_t* src = partial + (((size_t)tile * n_splits + s) * NLISTS + l) * k;
-    for (int i = 0; i < k; ++i) {
-      if (src[i] <= best[k - 1]) break;
-      insert_desc(best, k, src[i]);
-    }
-  }
-  const size_t qrow = (size_t)tile * QT + l / 2;
-  int32_t* sim_out = (l & 1) ? open_sim : std_sim;
-  int32_t* row_out = (l & 1) ? open_row : std_row;
-  for (int i = 0; i < k; ++i) {
-    const winner_t key = best[i];
-    sim_out[qrow * k + i] = key ? (int32_t)(key >> 32) : -1;
-    row_out[qrow * k + i] =
-        key ? (int32_t)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull)) : -1;
-  }
+  merge_warp_lists(s_list,
+                   partial + ((size_t)tile * gridDim.y + split) * NLISTS * k, k,
+                   tid);
 }
 
 }  // namespace
@@ -255,11 +164,6 @@ extern "C" int fused_search_launch(
 #undef REPRO_LAUNCH_PARTIAL
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int merge_threads = 256;
-  const int merge_blocks = (n_tiles * NLISTS + merge_threads - 1) / merge_threads;
-  fused_search_merge<<<merge_blocks, merge_threads, 0, st>>>(
-      static_cast<const winner_t*>(partial), n_tiles, n_splits, k,
-      static_cast<int32_t*>(std_sim), static_cast<int32_t*>(std_row),
-      static_cast<int32_t*>(open_sim), static_cast<int32_t*>(open_row));
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(partial, n_tiles, n_splits, k, std_sim, std_row,
+                      open_sim, open_row, st);
 }

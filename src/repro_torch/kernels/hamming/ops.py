@@ -1,7 +1,9 @@
-"""Wrapper of the CUDA fused dual-window search kernel (csrc/fused_search.cu).
+"""Wrappers of the CUDA popc kernels: the fused dual-window search
+(csrc/fused_search.cu) and the all-pairs Hamming tile
+(csrc/hamming_matrix.cu).
 
-On CPU tensors it runs the plain version (:mod:`.ref`); on CUDA tensors it
-launches the kernel or raises — there is no fallback.
+On CPU tensors they run the plain versions (:mod:`.ref`); on CUDA tensors
+they launch the kernel or raise — there is no fallback.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ K_MAX = 16         # largest top_k the kernel keeps (csrc: KMAX)
 # Padding queries carry this charge, which no reference row has.
 PAD_Q_CHARGE = -(2 ** 30)
 
-launches = _build.LaunchCounter()
+launches = _build.LaunchCounter()           # fused_search
+matrix_launches = _build.LaunchCounter()    # hamming_matrix
 
 
 def n_splits_for(n_tiles: int, rk: int, n_sms: int) -> int:
@@ -37,6 +40,38 @@ def _pad_blocks(x, nqb, q_block, per_block, value):
     return torch.cat([xb, pad], dim=1).reshape(nqb * per_block, *x.shape[1:])
 
 
+def hamming_matrix(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """All-pairs Hamming: q (Q, W) x r (R, W) int32 words -> (Q, R) int32."""
+    if q.device.type == "cpu":
+        return ref.hamming_matrix(q, r)
+    dev = check_pair("hamming_matrix", q, r)
+    Q, W = q.shape
+    R = r.shape[0]
+    out = torch.empty((Q, R), dtype=torch.int32, device=dev)
+    if Q == 0 or R == 0:
+        return out
+    rc = _build.library().hamming_matrix_launch(
+        _build.ptr(q), _build.ptr(r), _build.ptr(out), ctypes.c_int(Q),
+        ctypes.c_int(R), ctypes.c_int(W), _build.stream_ptr(dev))
+    _build.check(rc, "hamming_matrix_launch")
+    matrix_launches.count += 1
+    return out
+
+
+def check_pair(kernel: str, q: torch.Tensor, r: torch.Tensor) -> torch.device:
+    """Validate a (Q, W) x (R, W) pair of packed-word tensors for a tile
+    kernel; returns their device."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    _build.check_tensor(kernel, "q", q, torch.int32, 2, dev)
+    _build.check_tensor(kernel, "r", r, torch.int32, 2, dev)
+    if q.shape[1] != r.shape[1] or q.shape[1] < 1:
+        raise ValueError(f"{kernel}: query width {q.shape[1]} != reference "
+                         f"width {r.shape[1]}")
+    return dev
+
+
 def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
                  *, q_block: int, rk: int, dim: int, k: int,
                  ppm_tol: float = 20.0, open_tol_da: float = 75.0):
@@ -51,9 +86,20 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
         return ref.fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge,
                                 start_rows, q_block=q_block, rk=rk, dim=dim,
                                 k=k, ppm_tol=ppm_tol, open_tol_da=open_tol_da)
+    return launch_fused("fused_search", launches, q_hvs, q_pmz, q_charge,
+                        r_hvs, r_pmz, r_charge, start_rows, q_block=q_block,
+                        rk=rk, dim=dim, k=k, ppm_tol=ppm_tol,
+                        open_tol_da=open_tol_da)
+
+
+def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
+                 q_charge, r_hvs, r_pmz, r_charge, start_rows, *, q_block: int,
+                 rk: int, dim: int, k: int, ppm_tol: float, open_tol_da: float):
+    """Validate, pad and launch ``<kernel>_launch`` — any launcher with the
+    fused_search C signature — on CUDA tensors; ``counter`` counts it."""
     dev = q_hvs.device
     if dev.type != "cuda":
-        raise ValueError(f"fused_search: unsupported device {dev}")
+        raise ValueError(f"{kernel}: unsupported device {dev}")
     for name, t, dt, nd in (("q_hvs", q_hvs, torch.int32, 2),
                             ("q_pmz", q_pmz, torch.float32, 1),
                             ("q_charge", q_charge, torch.int32, 1),
@@ -61,24 +107,24 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
                             ("r_pmz", r_pmz, torch.float32, 1),
                             ("r_charge", r_charge, torch.int32, 1),
                             ("start_rows", start_rows, torch.int32, 1)):
-        _build.check_tensor("fused_search", name, t, dt, nd, dev)
+        _build.check_tensor(kernel, name, t, dt, nd, dev)
     Qp, W = q_hvs.shape
     N = r_hvs.shape[0]
     if r_hvs.shape[1] != W:
-        raise ValueError(f"fused_search: query width {W} != reference width "
+        raise ValueError(f"{kernel}: query width {W} != reference width "
                          f"{r_hvs.shape[1]}")
     if q_block < 1 or Qp % q_block or start_rows.shape[0] != Qp // q_block:
-        raise ValueError(f"fused_search: {Qp} queries do not form "
+        raise ValueError(f"{kernel}: {Qp} queries do not form "
                          f"{start_rows.shape[0]} blocks of {q_block}")
     if q_pmz.shape[0] != Qp or q_charge.shape[0] != Qp:
-        raise ValueError("fused_search: query sidecars must have one entry per query")
+        raise ValueError(f"{kernel}: query sidecars must have one entry per query")
     if r_pmz.shape[0] != N or r_charge.shape[0] != N:
-        raise ValueError("fused_search: reference sidecars must have one entry per row")
+        raise ValueError(f"{kernel}: reference sidecars must have one entry per row")
     if not 1 <= k <= K_MAX:
-        raise ValueError(f"fused_search: the CUDA kernel keeps 1..{K_MAX} "
+        raise ValueError(f"{kernel}: the CUDA kernel keeps 1..{K_MAX} "
                          f"winners, got top_k={k}")
     if not 1 <= rk <= N:
-        raise ValueError(f"fused_search: rk={rk} must be in [1, {N}]")
+        raise ValueError(f"{kernel}: rk={rk} must be in [1, {N}]")
     nqb = Qp // q_block
     if nqb == 0:
         z = torch.empty((0, k), dtype=torch.int32, device=dev)
@@ -98,8 +144,8 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
                           device=dev)
     outs = [torch.empty((n_tiles * QT, k), dtype=torch.int32, device=dev)
             for _ in range(4)]
-    lib = _build.library()
-    rc = lib.fused_search_launch(
+    launcher = getattr(_build.library(), f"{kernel}_launch")
+    rc = launcher(
         _build.ptr(q_hvs), _build.ptr(q_pmz), _build.ptr(q_charge),
         _build.ptr(r_hvs), _build.ptr(r_pmz), _build.ptr(r_charge),
         _build.ptr(tile_start), _build.ptr(partial),
@@ -109,8 +155,8 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
         ctypes.c_int(n_splits), ctypes.c_float(ref.std_scale(ppm_tol)),
         ctypes.c_float(float(np.float32(open_tol_da))),
         ctypes.c_float(PAD_PMZ), _build.stream_ptr(dev))
-    _build.check(rc, "fused_search_launch")
-    launches.count += 1
+    _build.check(rc, f"{kernel}_launch")
+    counter.count += 1
     if per_block != q_block:
         outs = [o.reshape(nqb, per_block, k)[:, :q_block].reshape(Qp, k)
                 for o in outs]

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of the fused dual-window top-k search.
+"""Plain PyTorch versions of the popc kernels: the all-pairs Hamming tile
+and the fused dual-window top-k search.
 
-It materialises each query block's (Qb, rk) similarity tile and reduces it
-with :func:`repro_torch.kernels.topk.select_topk`, exactly as the
-reference's ``fused_xla`` backend and matrix backends do. Used by the CUDA
-wrapper for CPU tensors, by backend ``fused_xla``, and as the yardstick the
-kernel is held against on the card.
+The fused search materialises each query block's (Qb, rk) similarity tile
+and reduces it with :func:`repro_torch.kernels.topk.select_topk`, exactly
+as the reference's ``fused_xla`` backend and matrix backends do. Used by
+the CUDA wrappers for CPU tensors, by backend ``fused_xla`` and the matrix
+backends, and as the yardsticks the kernels are held against on the card.
 """
 from __future__ import annotations
 
@@ -15,11 +16,26 @@ from repro_torch.core.blocking import PAD_PMZ
 from repro_torch.core.packing import hamming_matrix_packed
 from repro_torch.kernels.topk import select_topk
 
+# All-pairs Hamming q (Q, W) x r (R, W) -> (Q, R) int32 (XOR + popcount).
+hamming_matrix = hamming_matrix_packed
+
 
 def std_scale(ppm_tol: float) -> float:
     """The standard-window factor as the reference applies it: the Python
     product ``ppm_tol * 1e-6`` rounded once to float32 (weak typing)."""
     return float(np.float32(ppm_tol * 1e-6))
+
+
+def window_masks(q_pmz, r_pmz, q_charge, r_charge, *, ppm_tol: float,
+                 open_tol_da: float):
+    """(std_mask, open_mask), each (Qb, R) bool: charge and PAD validity
+    with the standard ppm and the open Da window, in the reference's float32
+    arithmetic."""
+    dpmz = torch.abs(q_pmz[:, None] - r_pmz[None, :])
+    valid = (r_pmz[None, :] < PAD_PMZ) & (q_charge[:, None] == r_charge[None, :])
+    std_mask = valid & (dpmz <= q_pmz[:, None] * std_scale(ppm_tol))
+    open_mask = valid & (dpmz <= float(np.float32(open_tol_da)))
+    return std_mask, open_mask
 
 
 def dual_window_topk(sims, q_pmz, r_pmz, q_charge, r_charge, *, k: int,
@@ -29,10 +45,8 @@ def dual_window_topk(sims, q_pmz, r_pmz, q_charge, r_charge, *, k: int,
     Returns (std_sim, std_col, open_sim, open_col), each (Qb, k) int32 with
     col = column in the tile or -1.
     """
-    dpmz = torch.abs(q_pmz[:, None] - r_pmz[None, :])
-    valid = (r_pmz[None, :] < PAD_PMZ) & (q_charge[:, None] == r_charge[None, :])
-    std_mask = valid & (dpmz <= q_pmz[:, None] * std_scale(ppm_tol))
-    open_mask = valid & (dpmz <= float(np.float32(open_tol_da)))
+    std_mask, open_mask = window_masks(q_pmz, r_pmz, q_charge, r_charge,
+                                       ppm_tol=ppm_tol, open_tol_da=open_tol_da)
     std_s, std_a = select_topk(torch.where(std_mask, sims, -1), k)
     open_s, open_a = select_topk(torch.where(open_mask, sims, -1), k)
     return std_s, std_a, open_s, open_a

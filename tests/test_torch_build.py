@@ -1,0 +1,70 @@
+"""The kernel build of repro_torch without nvcc: the build key covers every
+source and header under csrc/, and the CUDA wrappers refuse tensors on a
+device that is neither the CPU nor CUDA instead of falling back."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.hamming import ops as hops  # noqa: E402
+from repro_torch.kernels.hamming_mxu import ops as mops  # noqa: E402
+
+
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    (tmp_path / "a" / "csrc").mkdir(parents=True)
+    (tmp_path / "csrc").mkdir()
+    src = tmp_path / "a" / "csrc" / "k.cu"
+    cuh = tmp_path / "csrc" / "shared.cuh"
+    h = tmp_path / "csrc" / "consts.h"
+    src.write_text('#include "../../csrc/shared.cuh"\n')
+    cuh.write_text("// v1\n")
+    h.write_text("#define N 1\n")
+    (tmp_path / "a" / "notes.py").write_text("x = 1\n")
+    monkeypatch.setattr(_build, "_KERNELS_DIR", tmp_path)
+    assert _build.sources() == [src]
+    assert _build.headers() == sorted([cuh, h])
+    key = _build._digest()
+    assert _build._digest() == key
+    (tmp_path / "a" / "notes.py").write_text("x = 2\n")
+    assert _build._digest() == key                 # not a kernel file
+    cuh.write_text("// v2\n")
+    key2 = _build._digest()
+    assert key2 != key                             # a header alone rebuilds
+    h.write_text("#define N 2\n")
+    assert _build._digest() not in (key, key2)
+    src.write_text('#include "../../csrc/shared.cuh"\n// edit\n')
+    assert _build._digest() not in (key, key2)
+
+
+def test_repository_kernels_and_headers_are_found():
+    names = {p.name for p in _build.sources()}
+    assert {"fused_search.cu", "hamming_matrix.cu", "hdencode.cu",
+            "hamming_mxu.cu", "fused_search_mxu.cu", "errors.cu"} <= names
+    assert {p.name for p in _build.headers()} >= {"winners.cuh", "pm1_mma.cuh"}
+    assert len(_build._digest()) == 16
+    assert set(_build._SIGNATURES) >= {
+        "hamming_matrix_launch", "hamming_mxu_launch", "fused_search_launch",
+        "fused_search_mxu_launch"}
+
+
+@pytest.mark.parametrize("kernel", ["hamming_matrix", "hamming_mxu",
+                                    "fused_search", "fused_search_mxu"])
+def test_wrappers_refuse_other_devices(kernel):
+    """A tensor that is on neither the CPU nor CUDA gets no plain fallback."""
+    meta = dict(device="meta")
+    q = torch.empty((16, 4), dtype=torch.int32, **meta)
+    before = (hops.launches.count, hops.matrix_launches.count,
+              mops.launches.count, mops.matrix_launches.count)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        if kernel == "hamming_matrix":
+            hops.hamming_matrix(q, q)
+        elif kernel == "hamming_mxu":
+            mops.hamming_matrix(q, q, 128)
+        else:
+            pmz = torch.empty((16,), dtype=torch.float32, **meta)
+            ch = torch.empty((16,), dtype=torch.int32, **meta)
+            start = torch.empty((1,), dtype=torch.int32, **meta)
+            fn = hops.fused_search if kernel == "fused_search" else mops.fused_search
+            fn(q, pmz, ch, q, pmz, ch, start, q_block=16, rk=16, dim=128, k=1)
+    assert before == (hops.launches.count, hops.matrix_launches.count,
+                      mops.launches.count, mops.matrix_launches.count)

@@ -1,7 +1,8 @@
 """The port's resident OMS pipeline against the reference's, end to end on
 one dataset: the blocked DB, all six SearchResult arrays and both FDR
-results must be identical, for (vpu, word_tiled) and (fused, pallas) at
-top_k 1 and 2; state carried across by repro_torch.convert searches alike."""
+results must be identical, for every search backend (each paired with an
+encode backend) at top_k 1 and 2, with and without the dimension cascade;
+state carried across by repro_torch.convert searches alike."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -61,8 +62,12 @@ def _assert_output_equal(want, got):
             assert (np.asarray(getattr(w, f)) == g[f]).all(), (name, f)
 
 
-@pytest.mark.parametrize("backend,encode_backend", [("vpu", "word_tiled"),
-                                                    ("fused", "pallas")])
+BACKEND_PAIRS = [("vpu", "word_tiled"), ("fused", "pallas"),
+                 ("mxu", "word_tiled"), ("kernel_vpu", "pallas"),
+                 ("kernel_mxu", "word_tiled"), ("fused_mxu", "pallas")]
+
+
+@pytest.mark.parametrize("backend,encode_backend", BACKEND_PAIRS)
 @pytest.mark.parametrize("top_k", [1, 2])
 def test_pipeline_matches_reference(backend, encode_backend, top_k):
     _, (_, queries) = _dataset()
@@ -79,6 +84,25 @@ def test_pipeline_matches_reference(backend, encode_backend, top_k):
     got = pipe.search(queries, top_k=top_k)
     _assert_output_equal(want, got)
     assert pipe.identifications(got) == ref_pipe.identifications(want)
+
+
+@pytest.mark.parametrize("backend,encode_backend", BACKEND_PAIRS)
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_pipeline_prefix_words_matches_reference(backend, encode_backend, top_k):
+    """OMSConfig(prefix_words=P) runs the dimension cascade: the same
+    answer as the reference's cascade and as the port's full-width scan."""
+    ds, (_, queries) = _dataset()
+    want = _ref_pipeline(backend, encode_backend).search(
+        ds.queries, top_k=top_k, prefix_words=3)
+    pipe = _port_pipeline(backend, encode_backend)
+    stats = {}
+    hvs, qp, qc = pipe.encode_queries(queries)
+    got = pipe.search_encoded(hvs, qp, qc, top_k=top_k, prefix_words=3,
+                              stats=stats)
+    _assert_output_equal(want, got)
+    _assert_output_equal(_ref_run(backend, encode_backend, top_k)[1], got)
+    assert stats["seed_rows"] > 0 and 3 in pipe._prefix_hvs
+    assert pipe.prefix_hvs(3).is_contiguous()
 
 
 def test_state_carried_by_convert_searches_identically():

@@ -149,7 +149,8 @@ def _search_case(seed):
     return hvs, pmz, charge, decoy, q, qp, qc
 
 
-@pytest.mark.parametrize("backend", ["vpu", "fused"])
+@pytest.mark.parametrize("backend", ["vpu", "mxu", "kernel_vpu", "kernel_mxu",
+                                     "fused", "fused_mxu"])
 @pytest.mark.parametrize("top_k", [1, 2])
 @pytest.mark.parametrize("exhaustive", [False, True])
 def test_oms_search_matches_reference(backend, top_k, exhaustive):
@@ -187,9 +188,18 @@ def test_sort_pad_plan_matches_reference():
 
 
 def test_unported_options_raise():
-    with pytest.raises(ValueError, match="registered: vpu, fused, fused_xla"):
-        backends.get("fused_mxu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        search.validate_search_params(search.SearchParams(prefix_words=2))
+    names = "vpu, mxu, kernel_vpu, kernel_mxu, fused, fused_mxu, fused_xla"
+    with pytest.raises(ValueError, match=f"registered: {names}"):
+        backends.get("fused_tpu")
+    assert backends.names() == tuple(names.split(", "))
+    with pytest.raises(ValueError, match="prefix_words must be >= 0"):
+        search.validate_search_params(search.SearchParams(prefix_words=-1))
+    with pytest.raises(ValueError, match="prefix_seed_da must be > 0"):
+        search.validate_search_params(search.SearchParams(prefix_words=2,
+                                                          prefix_seed_da=0.0))
+    search.validate_search_params(search.SearchParams(prefix_words=2))
+    with pytest.raises(ValueError, match="must be < n_words=8"):
+        search.validate_prefix_words(search.SearchParams(prefix_words=8), 256)
+    search.validate_prefix_words(search.SearchParams(prefix_words=7), 256)
     with pytest.raises(ValueError, match="top_k"):
         search.validate_search_params(search.SearchParams(top_k=0))
