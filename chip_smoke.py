@@ -6,7 +6,13 @@ Phases (any failure exits nonzero; nothing is caught into a success):
   1. environment: card, power limit, torch/CUDA/nvcc versions, triton;
      build the CUDA kernels from the sources in this checkout.
   2. hdencode kernel against its plain PyTorch version on the card, at
-     dim 4096 and at 7 words.
+     dim 4096 and at 7 words, and at the bit-sliced counters' edges: a
+     count of 64 (P = 64, every peak valid with one bin and level), P = 1,
+     63, 100 and 2100 (the general plane path), and B = 1. Then
+     hamming_matrix against the plain tile at the shapes the main path
+     does not give it: W = 1 and 9, Q = 1 and 17, R = 1, 7 and 8k + 3, and
+     row slices whose base is not 16-byte aligned (W = 7 from an odd row,
+     W = 4 at a 4-byte offset).
   3. the main path at the iPRG2012 scale of Table I: OMSPipeline ingest of
      1,160,000 spectra plus as many decoys, 16,000 queries encoded and
      searched (backend ``fused``, encode backend ``pallas``), FDR at 1%;
@@ -21,14 +27,18 @@ Phases (any failure exits nonzero; nothing is caught into a success):
   5. kernel times (CUDA events, median of 10 after a warm-up) beside their
      plain versions at the same shapes (fused_search's plain version on the
      whole batch, held bit for bit against the kernel there and timed as
-     the median of 3) and their lower bounds.
-  6. the all-pairs tile kernels (hamming_matrix: popc; hamming_mxu: +-1
-     int8 tensor cores) against their plain versions on 8 main-path query
-     blocks at W = 128, at the cascade's prefix widths W = 64 and 8 and at
-     W = 7, and on 2 query blocks against the cascade's 4,194,304-row
-     bucket of gathered rows at W = 128 (the seed pass and the rescore);
-     the fused_search_mxu kernel against its plain version on 8 blocks at
-     k = 1 and k = 4, and at 7 words (dim 224, the scalar-load variant).
+     the median of 3) and their lower bounds; for the short kernels also
+     the device time of a CUDA graph of 20 launches, which leaves out the
+     wrapper's host work, and hdencode's gathered codebook bytes.
+  6. the all-pairs tile kernels (hamming_matrix: binary AND-popc tensor
+     cores; hamming_mxu: +-1 int8 tensor cores) against their plain
+     versions on 8 main-path query blocks at W = 128, at the cascade's
+     prefix widths W = 64 and 8 and at W = 7, and on 2 query blocks against
+     the cascade's 4,194,304-row bucket of gathered rows at W = 128 (the
+     seed pass and the rescore), where hamming_matrix is also timed beside
+     its bound; the fused_search_mxu kernel against its plain version on 8
+     blocks at k = 1 and k = 4, and at 7 words (dim 224, the scalar-load
+     variant).
   7. fused_search_mxu against fused_search on the whole batch at k = 1
      and k = 4: all four arrays bit-identical.
   8. the kernel backends end to end: search_encoded with kernel_vpu,
@@ -37,17 +47,18 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      launch counts are set to 0 just before it and read just after.
   9. the dimension cascade, exact mode, at prefix_words 8 and 64 with
      fused, kernel_vpu and fused_mxu on the full batch, each equal to the
-     full-width fused result; seed rows, survivors, buckets and stage
-     times are printed. Then margin mode (prefix_margin = half the rest),
-     which prunes: the stage-A keep flags of the whole batch (thresholds
-     from the full scan) through the kernel_vpu and fused_mxu tiles against
-     the plain tile, a strict subset kept; and on the first 512 queries the
-     same three backends' searches against a run whose tile is the plain
-     version (row-chunked), all results and survivor counts equal,
-     survivors a strict subset.
- 10. times and bounds of the three new kernels (the tiles at one main-path
-     block beside torch._int_mm on pre-unpacked +-1 int8; fused_search_mxu
-     on the whole batch, its plain version run once, compared and timed).
+     full-width fused result; seed rows, survivors, buckets, stage times
+     and the tile launches by shape (rows x words) are printed. Then
+     margin mode (prefix_margin = half the rest), which prunes: the stage-A
+     keep flags of the whole batch (thresholds from the full scan) through
+     the kernel_vpu and fused_mxu tiles against the plain tile, a strict
+     subset kept; and on the first 512 queries the same three backends'
+     searches against a run whose tile is the plain version (row-chunked),
+     all results and survivor counts equal, survivors a strict subset.
+ 10. times and bounds of the tile kernels and fused_search_mxu (the tiles
+     at one main-path block beside torch._int_mm on pre-unpacked +-1 int8;
+     fused_search_mxu on the whole batch, its plain version run once,
+     compared and timed).
 All five kernels go into one ``kernels`` JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
@@ -74,12 +85,27 @@ SLICE_ROWS = 4096
 ENCODE_BATCH = 4096      # spectra per hdencode launch on the main path
 CHUNK_ROWS = 1 << 16     # library rows per ingest chunk
 TIMING_ITERS = 10
+GRAPH_LAUNCHES = 20      # launches per captured CUDA graph (device times)
 
 FUSED_PLAIN_ITERS = 3    # the plain search takes ~20 s per full batch
 NARROW_W = 7             # a word count that takes the kernels' scalar paths
 TILE_CHECK_W = (64, 8, NARROW_W)   # the prefix widths and a scalar-load width
 BUCKET_CHECK_BLOCKS = 2  # query blocks held against the cascade's row bucket
 PLAIN_TILE_ROWS = 1 << 16  # row chunk of the plain tile at bucket sizes
+# Edge shapes of the redesigned kernels against their plain versions.
+HDENCODE_EDGE_SPECTRA = 256
+# P = 1: no upper counter plane; 63, 100: three and four; 2100: the general
+# plane path (P >> 3 >= 256).
+HDENCODE_EDGE_P = (1, 63, 100, 2100)
+TILE_EDGE_ROWS = 8 * 512 + 3
+# (Q, R, W, word offset of the rows): k-step tails (W = 1, 9), a partial and
+# a second query tile, R = 1, 7 and 8k + 3 (odd: the scalar stores), a W = 7
+# row slice from an odd row and a W = 4 one at a 4-byte offset (scalar loads
+# for a row base that is not 16-byte aligned).
+TILE_EDGE_SHAPES = ((16, TILE_EDGE_ROWS, 1, 0), (16, TILE_EDGE_ROWS, 9, 0),
+                    (1, TILE_EDGE_ROWS, 128, 0), (17, TILE_EDGE_ROWS, 128, 0),
+                    (16, 1, 128, 0), (16, 7, 128, 0), (16, TILE_EDGE_ROWS, 128, 0),
+                    (16, TILE_EDGE_ROWS, 7, 7), (16, TILE_EDGE_ROWS, 4, 1))
 # The kernel backends of phase 8 and the kernel each of them launches.
 BACKEND_KERNELS = {"kernel_vpu": "hamming_matrix", "kernel_mxu": "hamming_mxu",
                    "fused_mxu": "fused_search_mxu"}
@@ -140,6 +166,27 @@ def cuda_ms(fn, iters: int = TIMING_ITERS, warmup: bool = True) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
+    """Device milliseconds of one ``fn()``: ``launches`` calls captured in a
+    CUDA graph, the graph's replay timed as cuda_ms times a call, divided
+    by ``launches``. Around a single call, cuda_ms also counts the
+    wrapper's host work whenever the kernel is shorter than it; a replay
+    has none between its events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = cuda_ms(graph.replay) / launches
+    del graph
+    return ms
 
 
 def equal(a, b) -> bool:
@@ -235,6 +282,35 @@ def phase_hdencode_check(torch, cb) -> None:
     require(equal(got, ref.hdencode(bins, levels, mask, *narrow)),
             f"hdencode kernel differs from its plain version at W = {NARROW_W}")
     log(f"[check] hdencode kernel == plain at W = {NARROW_W} words: bit-identical")
+    phase_hdencode_edges(torch, cb)
+
+
+def phase_hdencode_edges(torch, cb) -> None:
+    """The bit-sliced counters at their edges: a count of 64 (the top plane
+    at P = 64), P from one plane to the general plane path, and B = 1."""
+    from repro_torch.kernels.hdencode import ops, ref
+    dev = cb.device
+    n_bins, n_levels = cb.id_hvs.shape[0], cb.level_hvs.shape[0]
+    B = HDENCODE_EDGE_SPECTRA
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    # one bin and one level per spectrum, repeated over all 64 peaks
+    same = [torch.randint(0, n, (B, 1), generator=g, device=dev,
+                          dtype=torch.int32).expand(B, 64).contiguous()
+            for n in (n_bins, n_levels)]
+    cases = [("P = 64, every peak valid with one bin and level (count 64)",
+              (*same, torch.ones((B, 64), dtype=torch.bool, device=dev)))]
+    cases += [(f"P = {P}", hdencode_inputs(torch, dev, n_bins, n_levels, B, P))
+              for P in HDENCODE_EDGE_P]
+    cases.append(("B = 1, P = 64", tuple(t[3:4].contiguous() for t in hdencode_inputs(
+        torch, dev, n_bins, n_levels, 4))))
+    for what, (bins, levels, mask) in cases:
+        args = (bins, levels, mask, cb.id_hvs, cb.level_hvs, cb.tiebreak)
+        got = ops.hdencode(*args)
+        torch.cuda.synchronize()
+        require(equal(got, ref.hdencode(*args)),
+                f"hdencode kernel differs from its plain version at {what}")
+        log(f"[check] hdencode kernel == plain at {what} ({tuple(bins.shape)} "
+            f"spectra x peaks): bit-identical")
 
 
 # ---------------------------------------------------------------------------
@@ -478,6 +554,7 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     hd_plain = hd_ref.hdencode(*hd_args)
     require(equal(hd_out, hd_plain), "hdencode timing shape: kernel != plain")
     hd_ms = cuda_ms(lambda: hd_ops.hdencode(*hd_args))
+    hd_device_ms = graph_ms(lambda: hd_ops.hdencode(*hd_args))
     hd_plain_ms = cuda_ms(lambda: hd_ref.hdencode(*hd_args))
     B, P = pre.bins.shape
     n_valid = int(pre.mask.sum())
@@ -495,6 +572,9 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     hd_ops_s, hd_bytes_s = hd_ops_n / int_rate, hd_bytes / HBM_BYTES_PER_S
     hd_bound = max(hd_ops_s, hd_bytes_s) * 1e3
     hd_by = "operations" if hd_ops_s >= hd_bytes_s else "bytes"
+    # What the kernel gathers: one ID row and one level row per valid peak
+    # (served by L2 and L1, not HBM: the touched codebook rows fit in L2).
+    hd_gather = 2 * n_valid * W * 4
 
     # fused_search on the whole main-path batch, kernel and plain version.
     params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
@@ -527,9 +607,12 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     fs_bound = max(fs_ops_s, fs_bytes_s) * 1e3
     fs_by = "operations" if fs_ops_s >= fs_bytes_s else "bytes"
     log(f"[times] hdencode ({B} x {P} peaks, {n_valid} valid, {valid_bins} bins "
-        f"touched, dim {cb.dim}): kernel {hd_ms:.4f} ms, plain {hd_plain_ms:.4f} ms, "
-        f"bound {hd_bound:.4f} ms ({hd_by}; ops {hd_ops_s * 1e3:.4f} ms, bytes "
-        f"{hd_bytes_s * 1e3:.4f} ms)")
+        f"touched, dim {cb.dim}): kernel {hd_ms:.4f} ms (device {hd_device_ms:.4f} ms "
+        f"in a graph), plain {hd_plain_ms:.4f} ms, bound {hd_bound:.4f} ms "
+        f"({hd_by}; ops {hd_ops_s * 1e3:.4f} ms, bytes "
+        f"{hd_bytes_s * 1e3:.4f} ms); gathered ID + level rows {hd_gather / 1e6:.1f} "
+        f"MB from L2/L1, {hd_gather / (hd_device_ms * 1e-3) / 1e12:.2f} TB/s of "
+        f"device time")
     log(f"[times] fused_search ({qh.shape[0]} queries, {nqb} blocks x {rk} rows, "
         f"{pairs:.4e} pairs): kernel {fs_ms:.3f} ms, plain {fs_plain_ms:.1f} ms "
         f"(median of {FUSED_PLAIN_ITERS}), bound {fs_bound:.3f} ms ({fs_by}; int8 "
@@ -542,9 +625,9 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
          "replaces": "src/repro/kernels/hdencode/hdencode.py:46",
          "tpu_kernel": "hdencode_kernel", "launches": launches["hdencode"],
          "bit_identical": True, "max_abs_err": max_abs_err([(hd_out, hd_plain)]),
-         "ms": hd_ms, "plain_ms": hd_plain_ms, "bound_ms": hd_bound,
-         "bound_by": hd_by, "library_ms": None,
-         "shape": f"{B}x{P} peaks, dim {cb.dim}"},
+         "ms": hd_ms, "device_ms": hd_device_ms, "plain_ms": hd_plain_ms,
+         "bound_ms": hd_bound, "bound_by": hd_by, "library_ms": None,
+         "shape": f"{B}x{P} peaks, dim {cb.dim}", "gather_bytes": hd_gather},
         {"name": "fused_search", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming/csrc/fused_search.cu",
          "replaces": "src/repro/kernels/hamming/hamming.py:102",
@@ -579,7 +662,36 @@ def plain_tile(q, r, dim=None):
                       for i in range(0, r.shape[0], PLAIN_TILE_ROWS)], dim=1)
 
 
-def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> None:
+def random_words(torch, g, n: int, w: int):
+    """(n, w) packed words, uniform over all 32-bit patterns."""
+    return torch.randint(0, 2 ** 32, (n, w), generator=g, device=DEVICE,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def phase_tile_edges(torch) -> None:
+    """hamming_matrix at the shapes the main path does not give it. The
+    first query and reference row are all ones and the second row all
+    zeros, the extremes of |q| and |r|."""
+    from repro_torch.kernels.hamming import ops as hops
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    for Q, R, W, off in TILE_EDGE_SHAPES:
+        q = random_words(torch, g, Q, W)
+        base = random_words(torch, g, R * W + off, 1).reshape(-1)
+        r = base[off:].reshape(R, W)
+        q[0] = -1
+        r[0] = -1
+        r[1:2] = 0
+        require(r.is_contiguous() and (off == 0 or r.data_ptr() % 16 != 0),
+                "tile edge case: the row slice is not where the case needs it")
+        got = hops.hamming_matrix(q, r)
+        torch.cuda.synchronize()
+        require(equal(got, plain_tile(q, r)), f"hamming_matrix kernel differs from "
+                f"plain at Q = {Q}, R = {R}, W = {W}, row offset {off} words")
+    log(f"[check] hamming_matrix kernel == plain at (Q, R, W, row offset in words) "
+        f"{', '.join(str(c) for c in TILE_EDGE_SHAPES)}: bit-identical")
+
+
+def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
     import numpy as np
     from repro_torch.core import search
     from repro_torch.kernels.hamming import ops as hops
@@ -622,6 +734,15 @@ def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> None:
         f"{BUCKET_CHECK_BLOCKS} main-path query blocks x the cascade's "
         f"{r.shape[0]}-row bucket ({rows.size} real rows gathered) at "
         f"W = {r.shape[1]}: bit-identical")
+    # hamming_matrix at the bucket shape, as the seed pass and the survivor
+    # rescore launch it; bound: the rows and queries read once, the tile
+    # written once.
+    bucket_ms = cuda_ms(lambda: hops.hamming_matrix(q, r))
+    Rb, Wb = r.shape
+    bucket = {"ms": bucket_ms, "bound_ms": (Rb * Wb * 4 + q.numel() * 4 + QB * Rb * 4)
+              / HBM_BYTES_PER_S * 1e3, "shape": f"{QB} x {Rb} x {Wb}"}
+    log(f"[times] hamming_matrix at the cascade's bucket shape ({bucket['shape']} "
+        f"words): kernel {bucket_ms:.4f} ms, bound {bucket['bound_ms']:.4f} ms (bytes)")
     del r
     for k in (1, 4):
         kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=k,
@@ -648,6 +769,7 @@ def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> None:
                 f"({name}, W={NARROW_W})")
     log(f"[check] fused_search_mxu kernel == plain at W = {NARROW_W} words "
         f"(dim {32 * NARROW_W}, scalar loads), k=4: bit-identical")
+    return bucket
 
 
 # ---------------------------------------------------------------------------
@@ -734,21 +856,42 @@ def _stats_line(stats, n_real) -> str:
             f"prefix {stats['prefix_s']:.2f}s, rescore {stats['rescore_s']:.2f}s")
 
 
+def _tile_shapes(kernel: str, fn):
+    """Run ``fn`` with the ``kernel`` tile wrapper wrapped to tally the
+    (rows, words) of every call; returns (fn's result, the tally)."""
+    import collections
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    mod = hops if kernel == "hamming_matrix" else mops
+    orig, shapes = mod.hamming_matrix, collections.Counter()
+
+    def tallied(q, r, *rest):
+        shapes[f"{r.shape[0]} x {r.shape[1]}"] += 1
+        return orig(q, r, *rest)
+    mod.hamming_matrix = tallied
+    try:
+        return fn(), dict(shapes)
+    finally:
+        mod.hamming_matrix = orig
+
+
 def phase_cascade(torch, pipe, hvs, q_pmz, q_charge, fused_out) -> None:
     Q = hvs.shape[0]
     n_real = int((pipe.db.orig_idx >= 0).sum())
     for P in CASCADE_PREFIX_WORDS:
         for be, kernel in CASCADE_TILES.items():
             stats = {}
-            out, t, counts = _counted(torch, lambda: pipe.search_encoded(
-                hvs, q_pmz, q_charge, backend=be, prefix_words=P, stats=stats))
+            (out, t, counts), shapes = _tile_shapes(kernel, lambda: _counted(
+                torch, lambda: pipe.search_encoded(hvs, q_pmz, q_charge, backend=be,
+                                                   prefix_words=P, stats=stats)))
             require(_outputs_equal(out, fused_out), f"cascade prefix_words={P} "
                     f"backend={be} differs from the full-width fused search")
             require(counts[kernel] > 0, f"cascade backend {be} launched {kernel} "
                     f"{counts[kernel]} times")
             log(f"[cascade] prefix_words={P} ({32 * P} bits) backend={be}, exact: "
                 f"== full-width fused on {Q} queries in {t:.2f}s; "
-                f"{_stats_line(stats, n_real)}; launches {json.dumps(counts)}")
+                f"{_stats_line(stats, n_real)}; launches {json.dumps(counts)}; "
+                f"{kernel} launches by rows x words {json.dumps(shapes)}")
 
 
 def phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge) -> None:
@@ -823,7 +966,7 @@ def phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge) -> None:
 
 
 def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
-                    fused_bound_ms, fused_bound_by):
+                    fused_bound_ms, fused_bound_by, bucket):
     from repro_torch.core import packing
     from repro_torch.kernels.hamming import ops as hops
     from repro_torch.kernels.hamming import ref as href
@@ -839,8 +982,10 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     R = r.shape[0]
     tile = href.hamming_matrix(q, r)
     vpu_ms = cuda_ms(lambda: hops.hamming_matrix(q, r))
+    vpu_device_ms = graph_ms(lambda: hops.hamming_matrix(q, r))
     vpu_plain_ms = cuda_ms(lambda: href.hamming_matrix(q, r))
     mxu_ms = cuda_ms(lambda: mops.hamming_matrix(q, r, dim))
+    mxu_device_ms = graph_ms(lambda: mops.hamming_matrix(q, r, dim))
     mxu_plain_ms = cuda_ms(lambda: mref.hamming_matrix(q, r, dim))
     # Library yardstick: one int8 GEMM on operands unpacked beforehand
     # (not timed), A padded to the 32 rows its shape rules want.
@@ -850,6 +995,7 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     dot = torch._int_mm(a8, b8)
     require(equal((dim - dot[:Q]) // 2, tile), "torch._int_mm yardstick != tile")
     lib_ms = cuda_ms(lambda: torch._int_mm(a8, b8))
+    lib_device_ms = graph_ms(lambda: torch._int_mm(a8, b8))
     del a8, b8, dot
     errs = {"hamming_matrix": max_abs_err([(hops.hamming_matrix(q, r), tile)]),
             "hamming_mxu": max_abs_err([(mops.hamming_matrix(q, r, dim), tile)])}
@@ -877,11 +1023,13 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     fm_err = max_abs_err(zip(fm_out, fm_plain))
     require(fm_err == 0, "fused_search_mxu on the whole batch: kernel != plain")
     log(f"[times] hamming_matrix ({Q} x {R} x {W} words, one main-path block): "
-        f"kernel {vpu_ms:.4f} ms, plain {vpu_plain_ms:.3f} ms, bound {t_bound:.4f} ms "
-        f"({t_by}; bytes {t_bytes * 1e3:.4f} ms, ops {t_ops * 1e3:.4f} ms), "
-        f"torch._int_mm {lib_ms:.4f} ms")
-    log(f"[times] hamming_mxu (same block): kernel {mxu_ms:.4f} ms, plain "
-        f"{mxu_plain_ms:.3f} ms, bound {t_bound:.4f} ms ({t_by})")
+        f"kernel {vpu_ms:.4f} ms (device {vpu_device_ms:.4f} ms in a graph), plain "
+        f"{vpu_plain_ms:.3f} ms, bound {t_bound:.4f} ms ({t_by}; bytes "
+        f"{t_bytes * 1e3:.4f} ms, ops {t_ops * 1e3:.4f} ms), torch._int_mm "
+        f"{lib_ms:.4f} ms (device {lib_device_ms:.4f} ms)")
+    log(f"[times] hamming_mxu (same block): kernel {mxu_ms:.4f} ms (device "
+        f"{mxu_device_ms:.4f} ms), plain {mxu_plain_ms:.3f} ms, bound {t_bound:.4f} ms "
+        f"({t_by})")
     log(f"[times] fused_search_mxu ({qh.shape[0]} queries, {starts.shape[0]} blocks "
         f"x {rk} rows, k={params.top_k}): kernel {fm_ms:.3f} ms, plain "
         f"{fm_plain_ms:.1f} ms (one run, compared bit for bit), bound "
@@ -894,16 +1042,20 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
          "tpu_kernel": "hamming_matrix_kernel",
          "launches": launches["hamming_matrix"], "bit_identical": True,
          "max_abs_err": errs["hamming_matrix"], "ms": vpu_ms,
-         "plain_ms": vpu_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
-         "library_ms": lib_ms, "shape": tile_shape},
+         "device_ms": vpu_device_ms, "plain_ms": vpu_plain_ms, "bound_ms": t_bound,
+         "bound_by": t_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+         "shape": tile_shape,
+         "bucket_ms": bucket["ms"], "bucket_bound_ms": bucket["bound_ms"],
+         "bucket_shape": bucket["shape"]},
         {"name": "hamming_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming_mxu/csrc/hamming_mxu.cu",
          "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:60",
          "tpu_kernel": "hamming_mxu_kernel",
          "launches": launches["hamming_mxu"], "bit_identical": True,
          "max_abs_err": errs["hamming_mxu"], "ms": mxu_ms,
-         "plain_ms": mxu_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
-         "library_ms": lib_ms, "shape": tile_shape},
+         "device_ms": mxu_device_ms, "plain_ms": mxu_plain_ms, "bound_ms": t_bound,
+         "bound_by": t_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+         "shape": tile_shape},
         {"name": "fused_search_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming_mxu/csrc/fused_search_mxu.cu",
          "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:99",
@@ -933,6 +1085,7 @@ def main() -> int:
     cfg = OMSConfig(backend="fused", encode_backend="pallas",
                     encode_batch=ENCODE_BATCH, seed=SEED)
     phase_hdencode_check(torch, _make_codebooks(cfg, torch.device(DEVICE)))
+    phase_tile_edges(torch)
 
     t0 = time.perf_counter()
     lib_cfg = iprg2012_config(scale=1.0, seed=SEED)
@@ -944,13 +1097,13 @@ def main() -> int:
     phase_fused_check(torch, pipe, hvs, q_pmz, q_charge)
     phase_paths(torch, pipe, ds)
     kernels = phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds)
-    phase_tile_check(torch, pipe, hvs, q_pmz, q_charge)
+    bucket = phase_tile_check(torch, pipe, hvs, q_pmz, q_charge)
     phase_fused_mxu_batch(torch, pipe, hvs, q_pmz, q_charge)
     launches.update(phase_backends(torch, pipe, hvs, q_pmz, q_charge, out))
     phase_cascade(torch, pipe, hvs, q_pmz, q_charge, out)
     phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge)
     kernels += phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
-                               kernels[1]["bound_ms"], kernels[1]["bound_by"])
+                               kernels[1]["bound_ms"], kernels[1]["bound_by"], bucket)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,171 @@
+"""Time this checkout's hamming_matrix and hdencode kernels against another
+checkout's, on one GPU, in one process.
+
+    python3 scripts/compare_kernels.py --other PATH
+
+Each tree's kernel library is built from its own sources (by its own
+``repro_torch/kernels/_build.py``, into its own ``build/``) and called
+through its C launchers on the same device tensors:
+
+* hamming_matrix at the main path's tile (16 queries x 143,360 rows x 128
+  words), at the dimension cascade's prefix tile (the same rows at 8 words)
+  and at its row bucket (16 x 4,194,304 x 128 words);
+* hdencode on 4,096 library spectra x 64 peaks at dim 4096 (the synthetic
+  iPRG2012-like generator, seed 0, preprocessed as the ingest does).
+
+Every shape runs other, this, this, other. Each run times one launch
+between CUDA events (median of 10) and a CUDA graph of 20 launches (median
+of 10 replays, divided by 20): the device's own time. Both trees' outputs
+must be bit-identical. Needs a GPU and ``nvcc``; the last line is one JSON
+object.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import encode_backends  # noqa: E402
+from repro_torch.core.pipeline import OMSConfig, _make_codebooks  # noqa: E402
+from repro_torch.data.spectra import LibraryConfig, make_dataset  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+ITERS = 10
+GRAPH_LAUNCHES = 20
+MAIN_ROWS = 143_360
+BUCKET_ROWS = 4_194_304
+SPECTRA = 4096
+
+
+def other_library(path: Path) -> ctypes.CDLL:
+    """Build and load the kernel library of the checkout at ``path``."""
+    spec = importlib.util.spec_from_file_location(
+        "other_build", path / "src" / "repro_torch" / "kernels" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(mod.build()))
+    for name in ("hamming_matrix_launch", "hdencode_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = _build._SIGNATURES[name]
+    return lib
+
+
+def event_ms(fn) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ITERS):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def graph_ms(fn) -> float:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    ms = event_ms(graph.replay) / GRAPH_LAUNCHES
+    del graph
+    return ms
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", type=Path, required=True,
+                    help="root of the other checkout (e.g. the parent commit)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no GPU: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    libs = {"other": other_library(args.other.resolve()), "this": _build.library()}
+
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def words(n, w):
+        return torch.randint(0, 2 ** 32, (n, w), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    q = words(16, 128)
+    rows = words(BUCKET_ROWS, 128)
+    cases = {}
+    for name, r in (("hamming_matrix main tile 16 x 143360 x 128", rows[:MAIN_ROWS]),
+                    ("hamming_matrix prefix tile 16 x 143360 x 8",
+                     rows[:MAIN_ROWS, :8].contiguous()),
+                    ("hamming_matrix bucket 16 x 4194304 x 128", rows)):
+        qw = q[:, :r.shape[1]].contiguous()
+        outs = {k: torch.empty((16, r.shape[0]), dtype=torch.int32, device=dev)
+                for k in libs}
+
+        def call(k, qw=qw, r=r, outs=outs):
+            rc = libs[k].hamming_matrix_launch(
+                qw.data_ptr(), r.data_ptr(), outs[k].data_ptr(), 16, r.shape[0],
+                r.shape[1], stream())
+            if rc:
+                raise RuntimeError(f"{k} hamming_matrix_launch: CUDA error {rc}")
+        cases[name] = (call, outs)
+
+    cfg = OMSConfig(encode_batch=SPECTRA, seed=0)
+    cb = _make_codebooks(cfg, dev)
+    ds = make_dataset(LibraryConfig(n_refs=SPECTRA, n_queries=128, seed=0))
+    pre = encode_backends._preprocess(*(torch.as_tensor(x, device=dev) for x in ds.refs),
+                                      cfg.preprocess_params)
+    B, P = pre.bins.shape
+    W = cb.id_hvs.shape[1]
+    hd_outs = {k: torch.empty((B, W), dtype=torch.int32, device=dev) for k in libs}
+
+    def hd_call(k):
+        rc = libs[k].hdencode_launch(
+            pre.bins.data_ptr(), pre.levels.data_ptr(), pre.mask.data_ptr(),
+            cb.id_hvs.data_ptr(), cb.level_hvs.data_ptr(), cb.tiebreak.data_ptr(),
+            hd_outs[k].data_ptr(), B, P, W, stream())
+        if rc:
+            raise RuntimeError(f"{k} hdencode_launch: CUDA error {rc}")
+    cases[f"hdencode {B} x {P} peaks, dim {32 * W} "
+          f"({int(pre.mask.sum())} valid)"] = (hd_call, hd_outs)
+
+    result = {}
+    for name, (call, outs) in cases.items():
+        res = {k: {"event_ms": [], "graph_ms": []} for k in libs}
+        for k in ("other", "this", "this", "other"):
+            res[k]["event_ms"].append(event_ms(lambda: call(k)))
+            res[k]["graph_ms"].append(graph_ms(lambda: call(k)))
+        torch.cuda.synchronize()
+        same = bool((outs["this"] == outs["other"]).all())
+        if not same:
+            raise RuntimeError(f"{name}: the two trees' outputs differ")
+        result[name] = res
+        print(f"[compare] {name}: other event {res['other']['event_ms']} graph "
+              f"{res['other']['graph_ms']}; this event {res['this']['event_ms']} "
+              f"graph {res['this']['graph_ms']} (ms); outputs bit-identical",
+              flush=True)
+    print(smi)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi,
+                      "other": str(args.other), "cases": result}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

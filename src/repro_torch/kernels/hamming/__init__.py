@@ -1,2 +1,3 @@
-"""The popc kernels: fused dual-window search and the all-pairs Hamming
-tile (counterpart of ``repro.kernels.hamming``)."""
+"""The packed Hamming kernels: the fused dual-window search (popc) and the
+all-pairs Hamming tile (binary tensor cores); counterpart of
+``repro.kernels.hamming``."""

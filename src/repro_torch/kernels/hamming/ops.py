@@ -1,6 +1,6 @@
-"""Wrappers of the CUDA popc kernels: the fused dual-window search
-(csrc/fused_search.cu) and the all-pairs Hamming tile
-(csrc/hamming_matrix.cu).
+"""Wrappers of the CUDA packed Hamming kernels: the fused dual-window search
+(csrc/fused_search.cu, popc) and the all-pairs Hamming tile
+(csrc/hamming_matrix.cu, binary tensor-core MMA).
 
 On CPU tensors they run the plain versions (:mod:`.ref`); on CUDA tensors
 they launch the kernel or raise — there is no fallback.
