@@ -18,7 +18,13 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      searched (backend ``fused``, encode backend ``pallas``), FDR at 1%;
      both kernels' launch counts are read around this phase. Then the
      fused_search kernel against its plain version on 8 of its query
-     blocks, at k = 1 and k = 4, and at 7 words (the scalar-load variant).
+     blocks, at k = 1 and k = 4, and at 7 words (the scalar-load variant);
+     both fused kernels (grouped: 8 consecutive query tiles per CTA) against
+     their plain versions on two runs of 2G + 1 consecutive main-path
+     blocks at k = 1, 4 and 16, with the groups' union/rk; and at the
+     grouped design's edges on seeded synthetic data (tie-heavy duplicate
+     rows): batches of 1, 2 and G + 1 blocks, identical starts, ranges past
+     the last row, q_block 20, W = 7, 9, 12 and 256, k = 1, 4 and 16.
   4. path against path: the first 512 queries through the plain torch ops
      (vpu, word_tiled) and through the kernels (fused, pallas) against the
      full DB; a 4,096-row library slice re-encoded with word_tiled against
@@ -35,8 +41,9 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      versions on 8 main-path query blocks at W = 128, at the cascade's
      prefix widths W = 64 and 8 and at W = 7, and on 2 query blocks against
      the cascade's 4,194,304-row bucket of gathered rows at W = 128 (the
-     seed pass and the rescore), where hamming_matrix is also timed beside
-     its bound; the fused_search_mxu kernel against its plain version on 8
+     seed pass and the rescore), where hamming_matrix and hamming_mxu are
+     also timed beside their bound; the fused_search_mxu kernel against its
+     plain version on 8
      blocks at k = 1 and k = 4, and at 7 words (dim 224, the scalar-load
      variant).
   7. fused_search_mxu against fused_search on the whole batch at k = 1
@@ -124,6 +131,29 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_CLK_SM = 64
 POPC_PER_CLK_SM = 16
 INT8_TENSOR_OPS_PER_S = 1979e12
+# mma.sync m16n8k256 .b1 AND-popc instructions issued per clock per SM,
+# measured by scripts/bmma_probe.py on an NVIDIA H100 80GB HBM3, 700.00 W
+# (PERF.md): each covers 16 x 8 pairs x 256 bits.
+BMMA_PER_CLK_SM = 0.589
+BMMA_PAIR_BITS = 16 * 8 * 256
+# Grouped fused kernels: runs of consecutive main-path query blocks (2G + 1
+# with G = 8 tiles per CTA) held against the plain versions at these k.
+FUSED_GROUP_RUN = 2 * 8 + 1
+FUSED_GROUP_KS = (1, 4, 16)
+# (what, rows, W, start rows, rk, q_block) on seeded synthetic data whose
+# rows repeat 8 HVs (ties); every case at k = 1, 4 and 16, both kernels.
+FUSED_EDGE_CASES = (
+    ("1 block", 3000, 128, (5,), 2000, 16),
+    ("2 blocks, identical starts", 3000, 128, (7, 7), 2000, 16),
+    ("G + 1 blocks (a partial last group)", 12000, 128, tuple(range(0, 9 * 1100, 1100)),
+     2048, 16),
+    ("ranges past the last row", 3000, 8, (0,) * 9 + (2990, 2995), 64, 16),
+    ("q_block 20", 4000, 128, (0, 100, 200, 300, 400), 1000, 20),
+    ("W = 7", 3000, 7, (0, 8, 16, 1000, 1000, 2700, 2750), 300, 16),
+    ("W = 9", 3000, 9, tuple(range(0, 90, 10)), 1024, 16),
+    ("W = 12", 3000, 12, tuple(range(0, 900, 100)), 1024, 16),
+    ("W = 256", 3000, 256, tuple(range(0, 90, 10)), 1024, 16),
+)
 
 
 def log(msg: str) -> None:
@@ -451,6 +481,99 @@ def phase_fused_check(torch, pipe, hvs, q_pmz, q_charge) -> int:
     return len(pick)
 
 
+FUSED_OUTS = ("std_sim", "std_row", "open_sim", "open_row")
+
+
+def _fused_pair_check(torch, what, args, kw) -> None:
+    """Both fused kernels against their plain versions at every k of
+    FUSED_GROUP_KS."""
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    from repro_torch.kernels.hamming_mxu import ref as mref
+    for k in FUSED_GROUP_KS:
+        kk = dict(kw, k=k)
+        for name, kern, plain in (("fused_search", hops, href), ("fused_search_mxu", mops, mref)):
+            got = kern.fused_search(*args, **kk)
+            torch.cuda.synchronize()
+            want = plain.fused_search(*args, **kk)
+            for out, g, w in zip(FUSED_OUTS, got, want):
+                require(equal(g, w), f"{name} kernel differs from plain ({out}, k={k}) "
+                        f"on {what}")
+
+
+def union_stats(starts, rk: int, n_rows: int) -> tuple[float, float]:
+    """(mean, max) over the fused kernels' CTA groups of union rows / rk."""
+    from repro_torch.kernels.hamming import ops as hops
+    span = hops.group_spans(starts, rk, n_rows)
+    u = (span[:, 1] - span[:, 0]).double() / rk
+    return float(u.mean()), float(u.max())
+
+
+def phase_fused_groups(torch, pipe, hvs, q_pmz, q_charge) -> None:
+    """The grouped fused kernels on runs of consecutive main-path blocks:
+    groups of 8 tiles form, the last group of each run is partial, and the
+    second run's start rows differ (masks inside a group's union)."""
+    params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db, QB = pipe.db, params.q_block
+    rk = params.k_blocks * db.max_r
+    nqb = starts.shape[0]
+    kw = dict(q_block=QB, rk=rk, dim=pipe.cfg.dim, ppm_tol=params.ppm_tol,
+              open_tol_da=params.open_tol_da)
+    # A run from block 0 and, after it, the first run whose start rows are
+    # not all equal (a group whose union is wider than rk).
+    st = starts.cpu()
+    shifted = next((b for b in range(FUSED_GROUP_RUN, nqb - FUSED_GROUP_RUN + 1)
+                    if st[b + FUSED_GROUP_RUN - 1] > st[b]), nqb // 2)
+    for b0 in (0, shifted):
+        blocks = slice(b0, min(b0 + FUSED_GROUP_RUN, nqb))
+        rows = slice(blocks.start * QB, blocks.stop * QB)
+        run_starts = starts[blocks].contiguous()
+        args = (qh[rows].contiguous(), qp[rows].contiguous(), qc[rows].contiguous(),
+                db.hvs, db.pmz, db.charge, run_starts)
+        _fused_pair_check(torch, f"blocks {blocks.start}..{blocks.stop - 1}", args, kw)
+        u_mean, u_max = union_stats(run_starts, rk, db.n_rows)
+        log(f"[check] fused_search and fused_search_mxu kernels == plain on "
+            f"{blocks.stop - blocks.start} consecutive main-path blocks "
+            f"({blocks.start}..{blocks.stop - 1}) x {rk} rows at k = "
+            f"{', '.join(map(str, FUSED_GROUP_KS))}: bit-identical (groups' "
+            f"union/rk mean {u_mean:.4f}, max {u_max:.4f})")
+
+
+def fused_edge_inputs(torch, g, n_rows: int, W: int, starts, rk: int, q_block: int):
+    """Seeded synthetic fused-search arguments: rows drawn from 8 HVs (ties),
+    ascending pmz with a PAD tail, queries copied from rows of their block's
+    range or random, near those rows' pmz (std-window hits), one padded
+    query per block."""
+    pool = random_words(torch, g, 8, W)
+    r = pool[torch.randint(0, 8, (n_rows,), generator=g, device=DEVICE)]
+    rp = torch.sort(torch.rand(n_rows, generator=g, device=DEVICE) * 20 + 400).values
+    rc = torch.randint(2, 4, (n_rows,), generator=g, device=DEVICE, dtype=torch.int32)
+    rp[-6:] = float(torch.finfo(torch.float32).max)
+    rc[-6:] = -1
+    st = torch.tensor(starts, dtype=torch.int32, device=DEVICE)
+    Q = st.shape[0] * q_block
+    src = torch.clamp(st.repeat_interleave(q_block).long()
+                      + torch.randint(0, rk, (Q,), generator=g, device=DEVICE), max=n_rows - 7)
+    q = r[src].clone()
+    q[1::3] = random_words(torch, g, q[1::3].shape[0], W)
+    qp = rp[src] + (torch.rand(Q, generator=g, device=DEVICE) - 0.5) * 1.2
+    qp[::4] = rp[src][::4]
+    qc = rc[src].clone()
+    qc[q_block - 1::q_block] = -(2 ** 30)
+    return (q, qp.contiguous(), qc, r, rp, rc, st)
+
+
+def phase_fused_edges(torch) -> None:
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    for what, n_rows, W, starts, rk, q_block in FUSED_EDGE_CASES:
+        args = fused_edge_inputs(torch, g, n_rows, W, starts, rk, q_block)
+        _fused_pair_check(torch, what, args, dict(q_block=q_block, rk=rk, dim=32 * W))
+    log(f"[check] fused_search and fused_search_mxu kernels == plain at the grouped "
+        f"design's edges ({'; '.join(c[0] for c in FUSED_EDGE_CASES)}) at k = "
+        f"{', '.join(map(str, FUSED_GROUP_KS))}, tie-heavy rows: bit-identical")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: path against path
 # ---------------------------------------------------------------------------
@@ -593,19 +716,26 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     fs_plain_ms = cuda_ms(lambda: fs_ref.fused_search(*fs_args, **kw),
                           iters=FUSED_PLAIN_ITERS, warmup=False)
     pairs = qh.shape[0] * rk
-    # Operations: the cheaper of two routes to the same Hamming tile — a popc
-    # per (pair, word), or 2 * dim int8 tensor-core ops per pair (a +-1 dot).
-    popc_s = pairs * W / popc_rate
-    mma_s = pairs * pipe.cfg.dim * 2 / INT8_TENSOR_OPS_PER_S
+    # Operations: the cheapest of three routes to the same Hamming tiles — a
+    # popc per (pair, word); 2 * dim int8 tensor-core ops per pair (a +-1
+    # dot); or the binary tensor cores, one m16n8k256 AND-popc MMA per
+    # 16 x 8 pairs x 256 bits at the rate the probe measured on this card.
+    routes = {"popc": pairs * W / popc_rate,
+              "int8 tensor cores": pairs * pipe.cfg.dim * 2 / INT8_TENSOR_OPS_PER_S,
+              "binary tensor cores": pairs * 32 * W / BMMA_PAIR_BITS
+              / (BMMA_PER_CLK_SM * n_sms * clk)}
+    fs_route = min(routes, key=routes.get)
+    u_mean, u_max = union_stats(starts, rk, db.n_rows)
     scanned = torch.unique(starts).cpu().numpy()
     covered = np.zeros(db.n_rows, bool)
     for s in scanned:
         covered[s:s + rk] = True
     fs_bytes = (int(covered.sum()) * (W * 4 + 8) + qh.numel() * 4 + qh.shape[0] * 8
                 + starts.numel() * 4 + 4 * qh.shape[0] * params.top_k * 4)
-    fs_ops_s, fs_bytes_s = min(popc_s, mma_s), fs_bytes / HBM_BYTES_PER_S
+    fs_ops_s, fs_bytes_s = routes[fs_route], fs_bytes / HBM_BYTES_PER_S
     fs_bound = max(fs_ops_s, fs_bytes_s) * 1e3
     fs_by = "operations" if fs_ops_s >= fs_bytes_s else "bytes"
+    fs_route = fs_route if fs_by == "operations" else "HBM"
     log(f"[times] hdencode ({B} x {P} peaks, {n_valid} valid, {valid_bins} bins "
         f"touched, dim {cb.dim}): kernel {hd_ms:.4f} ms (device {hd_device_ms:.4f} ms "
         f"in a graph), plain {hd_plain_ms:.4f} ms, bound {hd_bound:.4f} ms "
@@ -614,10 +744,11 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
         f"MB from L2/L1, {hd_gather / (hd_device_ms * 1e-3) / 1e12:.2f} TB/s of "
         f"device time")
     log(f"[times] fused_search ({qh.shape[0]} queries, {nqb} blocks x {rk} rows, "
-        f"{pairs:.4e} pairs): kernel {fs_ms:.3f} ms, plain {fs_plain_ms:.1f} ms "
-        f"(median of {FUSED_PLAIN_ITERS}), bound {fs_bound:.3f} ms ({fs_by}; int8 "
-        f"tensor-core {mma_s * 1e3:.3f} ms, popc {popc_s * 1e3:.3f} ms, bytes "
-        f"{fs_bytes_s * 1e3:.3f} ms)")
+        f"{pairs:.4e} pairs; groups' union/rk mean {u_mean:.4f}, max {u_max:.4f}): "
+        f"kernel {fs_ms:.3f} ms, plain {fs_plain_ms:.1f} ms (median of "
+        f"{FUSED_PLAIN_ITERS}), bound {fs_bound:.3f} ms ({fs_by}, {fs_route}; "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in routes.items())
+        + f", bytes {fs_bytes_s * 1e3:.3f} ms)")
 
     return [
         {"name": "hdencode", "route": "cuda",
@@ -634,9 +765,10 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
          "tpu_kernel": "fused_search_kernel", "launches": launches["fused_search"],
          "bit_identical": True, "max_abs_err": fs_err,
          "ms": fs_ms, "plain_ms": fs_plain_ms, "bound_ms": fs_bound,
-         "bound_by": fs_by, "library_ms": None,
+         "bound_by": fs_by, "bound_route": fs_route, "library_ms": None,
          "shape": f"{qh.shape[0]} queries x {rk} rows, k={params.top_k}",
-         "popc_route_bound_ms": max(popc_s, fs_bytes_s) * 1e3},
+         "route_bounds_ms": {k: max(v, fs_bytes_s) * 1e3 for k, v in routes.items()},
+         "union_over_rk": {"mean": u_mean, "max": u_max}},
     ]
 
 
@@ -737,12 +869,14 @@ def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
     # hamming_matrix at the bucket shape, as the seed pass and the survivor
     # rescore launch it; bound: the rows and queries read once, the tile
     # written once.
-    bucket_ms = cuda_ms(lambda: hops.hamming_matrix(q, r))
     Rb, Wb = r.shape
-    bucket = {"ms": bucket_ms, "bound_ms": (Rb * Wb * 4 + q.numel() * 4 + QB * Rb * 4)
+    bucket = {"ms": cuda_ms(lambda: hops.hamming_matrix(q, r)),
+              "mxu_ms": cuda_ms(lambda: mops.hamming_matrix(q, r, dim)),
+              "bound_ms": (Rb * Wb * 4 + q.numel() * 4 + QB * Rb * 4)
               / HBM_BYTES_PER_S * 1e3, "shape": f"{QB} x {Rb} x {Wb}"}
-    log(f"[times] hamming_matrix at the cascade's bucket shape ({bucket['shape']} "
-        f"words): kernel {bucket_ms:.4f} ms, bound {bucket['bound_ms']:.4f} ms (bytes)")
+    log(f"[times] at the cascade's bucket shape ({bucket['shape']} words): "
+        f"hamming_matrix kernel {bucket['ms']:.4f} ms, hamming_mxu kernel "
+        f"{bucket['mxu_ms']:.4f} ms, bound {bucket['bound_ms']:.4f} ms (bytes)")
     del r
     for k in (1, 4):
         kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=k,
@@ -961,12 +1095,12 @@ def phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: times and bounds of the three new kernels
+# Phase 10: times and bounds of the tile kernels and fused_search_mxu
 # ---------------------------------------------------------------------------
 
 
 def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
-                    fused_bound_ms, fused_bound_by, bucket):
+                    fused_bound, bucket):
     from repro_torch.core import packing
     from repro_torch.kernels.hamming import ops as hops
     from repro_torch.kernels.hamming import ref as href
@@ -1033,7 +1167,8 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     log(f"[times] fused_search_mxu ({qh.shape[0]} queries, {starts.shape[0]} blocks "
         f"x {rk} rows, k={params.top_k}): kernel {fm_ms:.3f} ms, plain "
         f"{fm_plain_ms:.1f} ms (one run, compared bit for bit), bound "
-        f"{fused_bound_ms:.3f} ms ({fused_bound_by})")
+        f"{fused_bound['bound_ms']:.3f} ms ({fused_bound['bound_by']}, "
+        f"{fused_bound['bound_route']})")
     tile_shape = f"{Q} queries x {R} rows x {W} words (one main-path block)"
     return [
         {"name": "hamming_matrix", "route": "cuda",
@@ -1055,15 +1190,17 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
          "max_abs_err": errs["hamming_mxu"], "ms": mxu_ms,
          "device_ms": mxu_device_ms, "plain_ms": mxu_plain_ms, "bound_ms": t_bound,
          "bound_by": t_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
-         "shape": tile_shape},
+         "shape": tile_shape,
+         "bucket_ms": bucket["mxu_ms"], "bucket_bound_ms": bucket["bound_ms"],
+         "bucket_shape": bucket["shape"]},
         {"name": "fused_search_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming_mxu/csrc/fused_search_mxu.cu",
          "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:99",
          "tpu_kernel": "fused_search_mxu_kernel",
          "launches": launches["fused_search_mxu"], "bit_identical": True,
          "max_abs_err": fm_err, "ms": fm_ms, "plain_ms": fm_plain_ms,
-         "bound_ms": fused_bound_ms, "bound_by": fused_bound_by,
-         "library_ms": None,
+         "bound_ms": fused_bound["bound_ms"], "bound_by": fused_bound["bound_by"],
+         "bound_route": fused_bound["bound_route"], "library_ms": None,
          "shape": f"{qh.shape[0]} queries x {rk} rows, k={params.top_k}"},
     ]
 
@@ -1095,6 +1232,8 @@ def main() -> int:
         f"(numpy, seed {SEED}) in {time.perf_counter() - t0:.1f}s")
     pipe, hvs, q_pmz, q_charge, launches, out = phase_main_path(torch, ds, cfg)
     phase_fused_check(torch, pipe, hvs, q_pmz, q_charge)
+    phase_fused_groups(torch, pipe, hvs, q_pmz, q_charge)
+    phase_fused_edges(torch)
     phase_paths(torch, pipe, ds)
     kernels = phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds)
     bucket = phase_tile_check(torch, pipe, hvs, q_pmz, q_charge)
@@ -1103,7 +1242,7 @@ def main() -> int:
     phase_cascade(torch, pipe, hvs, q_pmz, q_charge, out)
     phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge)
     kernels += phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
-                               kernels[1]["bound_ms"], kernels[1]["bound_by"], bucket)
+                               kernels[1], bucket)
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))

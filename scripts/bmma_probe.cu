@@ -6,8 +6,12 @@
 //   PROBE_VARIANT 2: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
 // Each library exports probe_tile (one warp, one MMA on a 16 x 8-word A and
 // an 8 x 8-word B in the word map the Hamming kernel uses, for a check on
-// the host) and probe_rate (every warp runs `iters` rounds of CHAINS
-// independent MMAs, for the instruction rate).
+// the host), probe_rate (every warp runs `iters` rounds of CHAINS
+// independent MMAs, for the instruction rate) and probe_fused_rate (the
+// fused search kernels' shape: one CTA of 8 warps per SM, 8 x 4 independent
+// accumulators per warp, each A fragment read from shared memory once per
+// step and used on 4 MMAs; with `expand`, each B operand is the +-1
+// expansion of a packed word's nibble, as fused_search_mxu.cu computes it).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -72,6 +76,57 @@ __global__ void rate_kernel(int32_t* out, int iters) {
 
 }  // namespace
 
+// +-1 int8 lanes of bits [shift, shift + 4) of w (pm1_mma.cuh's pm1_nibble).
+__device__ __forceinline__ uint32_t pm1_nibble(uint32_t w, int shift) {
+  const uint32_t x = (w >> shift) & 0xFu;
+  return ((x * 0x00204081u) & 0x01010101u) * 0xFEu + 0x01010101u;
+}
+
+constexpr int FUSED_TILES = 8;     // A fragments (query tiles) per step
+constexpr int FUSED_NT = 4;        // B fragments (n8 row tiles) per step
+
+template <bool EXPAND>
+__global__ void fused_rate_kernel(int32_t* out, int iters) {
+  __shared__ uint4 s_a[FUSED_TILES * 32];
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const uint32_t s = threadIdx.x * 0x9E3779B9u + blockIdx.x;
+  for (int i = threadIdx.x; i < FUSED_TILES * 32; i += blockDim.x)
+    s_a[i] = make_uint4(s, s ^ 5u, s + 7u, s * 3u);
+  __syncthreads();
+  int32_t c[FUSED_TILES][FUSED_NT][4];
+#pragma unroll
+  for (int j = 0; j < FUSED_TILES; ++j)
+#pragma unroll
+    for (int n = 0; n < FUSED_NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[j][n][i] = 0;
+  uint32_t w[FUSED_NT] = {s, s * 7u, s ^ 0x55u, s + 99u};
+  for (int it = 0; it < iters; ++it) {
+    uint32_t b0[FUSED_NT], b1[FUSED_NT];
+#pragma unroll
+    for (int n = 0; n < FUSED_NT; ++n) {
+      w[n] = w[n] * 1664525u + 1013904223u;           // a new packed word
+      b0[n] = EXPAND ? pm1_nibble(w[n], 4 * t) : w[n];
+      b1[n] = EXPAND ? pm1_nibble(w[n], 16 + 4 * t) : w[n] >> 1;
+    }
+    uint4 a[FUSED_TILES];
+#pragma unroll
+    for (int j = 0; j < FUSED_TILES; ++j) a[j] = s_a[((it + j) & 7) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < FUSED_TILES; ++j)
+#pragma unroll
+      for (int n = 0; n < FUSED_NT; ++n)
+        mma(c[j][n], a[j].x, a[j].y, a[j].z, a[j].w, b0[n], b1[n]);
+  }
+  int32_t sum = 0;
+#pragma unroll
+  for (int j = 0; j < FUSED_TILES; ++j)
+#pragma unroll
+    for (int n = 0; n < FUSED_NT; ++n) sum += c[j][n][0] + c[j][n][1] + c[j][n][2] + c[j][n][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
 extern "C" int probe_tile(const void* a, const void* b, void* d) {
   tile_kernel<<<1, 32>>>(static_cast<const uint32_t*>(a),
                          static_cast<const uint32_t*>(b), static_cast<int32_t*>(d));
@@ -86,3 +141,13 @@ extern "C" int probe_rate(void* out, int blocks, int threads, int iters,
 }
 
 extern "C" int probe_chains() { return CHAINS; }
+
+// FUSED_TILES * FUSED_NT MMAs per warp and iteration, 256 threads a CTA.
+extern "C" int probe_fused_rate(void* out, int blocks, int iters, int expand, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (expand)
+    fused_rate_kernel<true><<<blocks, 256, 0, st>>>(static_cast<int32_t*>(out), iters);
+  else
+    fused_rate_kernel<false><<<blocks, 256, 0, st>>>(static_cast<int32_t*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -9,8 +9,12 @@ accepts: prints what ptxas said (warnings included), checks one MMA on
 random words against numpy in the word map of
 ``src/repro_torch/kernels/hamming/csrc/hamming_matrix.cu``, and times the
 instruction rate (CUDA events, median of 10) with every SM full of warps
-running independent MMAs. Needs a GPU and ``nvcc``; the libraries go to
-``build/bmma_probe/`` (git-ignored). The last line is one JSON object.
+running independent MMAs, and again in the fused search kernels' shape
+(one CTA of 8 warps per SM, 32 accumulators a warp, A read from shared
+memory; for the int8 MMA also with every B operand expanded from a packed
+word as fused_search_mxu.cu does). Needs a GPU and ``nvcc``; the libraries
+go to ``build/bmma_probe/`` (git-ignored). The last line is one JSON
+object.
 """
 from __future__ import annotations
 
@@ -56,6 +60,21 @@ def host_tile(variant: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.unpackbits(x.view(np.uint8), axis=-1).sum(axis=-1).astype(np.int32)
 
 
+def median_ms(run) -> float:
+    """Median milliseconds of run() over 10 CUDA-event-timed calls, after one."""
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        run()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is false", file=sys.stderr)
@@ -89,6 +108,8 @@ def main() -> int:
         lib.probe_tile.argtypes = [ctypes.c_void_p] * 3
         lib.probe_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, ctypes.c_void_p]
+        lib.probe_fused_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_void_p]
         ok = True
         for _ in range(4):
             a = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint64).astype(np.uint32)
@@ -108,17 +129,7 @@ def main() -> int:
         def run():
             if lib.probe_rate(out.data_ptr(), blocks, THREADS, ITERS, stream):
                 raise RuntimeError(f"{name}: probe_rate launch failed")
-        run()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(10):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            run()
-            e.record()
-            torch.cuda.synchronize()
-            times.append(s.elapsed_time(e))
-        ms = statistics.median(times)
+        ms = median_ms(run)
         n_mma = blocks * (THREADS // 32) * ITERS * 8   # probe_chains() == 8
         res["ms"] = ms
         res["mma_per_s"] = n_mma / (ms * 1e-3)
@@ -128,6 +139,19 @@ def main() -> int:
         print(f"[probe] {name}: tile == numpy: {ok}; {ms:.3f} ms for {n_mma} MMAs: "
               f"{res['mma_per_clk_per_sm']:.3f} per clock per SM, "
               f"{res['tera_ops_per_s']:.1f} T bit/byte-ops/s")
+        # The fused kernels' shape: n_sms CTAs of 8 warps, 32 MMAs a round.
+        fused_out = torch.empty(n_sms * THREADS, dtype=torch.int32, device=dev)
+        for expand in ((0, 1) if v == 2 else (0,)):
+            def fused_run(expand=expand):
+                if lib.probe_fused_rate(fused_out.data_ptr(), n_sms, ITERS, expand, stream):
+                    raise RuntimeError(f"{name}: probe_fused_rate launch failed")
+            fused_ms = median_ms(fused_run)
+            n_fused = n_sms * (THREADS // 32) * ITERS * 32
+            key = "fused_shape" + ("_b_expanded" if expand else "")
+            res[key + "_mma_per_clk_per_sm"] = n_fused / (fused_ms * 1e-3) / clk_hz / n_sms
+            print(f"[probe] {name}, fused kernels' shape (8 warps/SM, 32 accumulators"
+                  f"{', B expanded from packed words' if expand else ''}): "
+                  f"{res[key + '_mma_per_clk_per_sm']:.3f} per clock per SM")
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi,
                       "max_sm_clock": clock, "n_sms": n_sms, "variants": results}))

@@ -1,5 +1,5 @@
-"""Time this checkout's hamming_matrix and hdencode kernels against another
-checkout's, on one GPU, in one process.
+"""Time this checkout's kernels against another checkout's, on one GPU, in
+one process.
 
     python3 scripts/compare_kernels.py --other PATH
 
@@ -11,13 +11,18 @@ through its C launchers on the same device tensors:
   words), at the dimension cascade's prefix tile (the same rows at 8 words)
   and at its row bucket (16 x 4,194,304 x 128 words);
 * hdencode on 4,096 library spectra x 64 peaks at dim 4096 (the synthetic
-  iPRG2012-like generator, seed 0, preprocessed as the ingest does).
+  iPRG2012-like generator, seed 0, preprocessed as the ingest does);
+* fused_search and fused_search_mxu on the whole Table I batch (the
+  iPRG2012-scale library and 16,000 queries of chip_smoke.py, seed 0,
+  sorted and padded as the main path does, k = 1), each tree with its own
+  split count (its own ``n_splits_for``).
 
 Every shape runs other, this, this, other. Each run times one launch
 between CUDA events (median of 10) and a CUDA graph of 20 launches (median
-of 10 replays, divided by 20): the device's own time. Both trees' outputs
-must be bit-identical. Needs a GPU and ``nvcc``; the last line is one JSON
-object.
+of 10 replays, divided by 20): the device's own time, left out for the
+fused kernels, whose one launch dwarfs the host work. Both trees' outputs
+must be bit-identical (all four arrays of a fused search). Needs a GPU and
+``nvcc``; the last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -35,10 +40,13 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.core import encode_backends  # noqa: E402
-from repro_torch.core.pipeline import OMSConfig, _make_codebooks  # noqa: E402
-from repro_torch.data.spectra import LibraryConfig, make_dataset  # noqa: E402
+from repro_torch.core import encode_backends, search  # noqa: E402
+from repro_torch.core.blocking import PAD_PMZ  # noqa: E402
+from repro_torch.core.pipeline import OMSConfig, OMSPipeline, _make_codebooks  # noqa: E402
+from repro_torch.data.spectra import LibraryConfig, iprg2012_config, make_dataset  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.hamming import ops as hops  # noqa: E402
+from repro_torch.kernels.hamming import ref as href  # noqa: E402
 
 ITERS = 10
 GRAPH_LAUNCHES = 20
@@ -47,17 +55,63 @@ BUCKET_ROWS = 4_194_304
 SPECTRA = 4096
 
 
-def other_library(path: Path) -> ctypes.CDLL:
-    """Build and load the kernel library of the checkout at ``path``."""
-    spec = importlib.util.spec_from_file_location(
-        "other_build", path / "src" / "repro_torch" / "kernels" / "_build.py")
+FUSED = ("fused_search_launch", "fused_search_mxu_launch")
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def other_library(path: Path) -> ctypes.CDLL:
+    """Build and load the kernel library of the checkout at ``path``."""
+    mod = _load("other_build", path / "src" / "repro_torch" / "kernels" / "_build.py")
     lib = ctypes.CDLL(str(mod.build()))
-    for name in ("hamming_matrix_launch", "hdencode_launch"):
+    for name in ("hamming_matrix_launch", "hdencode_launch", *FUSED):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build._SIGNATURES[name]
     return lib
+
+
+def fused_cases(libs, n_splits_fns, dev) -> dict:
+    """The two fused kernels on the whole Table I batch, called through each
+    tree's C launcher with that tree's split count."""
+    ds = make_dataset(iprg2012_config(scale=1.0, seed=0))
+    cfg = OMSConfig(backend="fused", encode_backend="pallas", encode_batch=SPECTRA, seed=0)
+    pipe = OMSPipeline(cfg, ds.refs, device=dev, chunk_rows=1 << 16)
+    hvs, q_pmz, q_charge = pipe.encode_queries(ds.queries)
+    params = pipe.search_params(q_pmz.cpu().numpy(), q_charge.cpu().numpy())
+    gather, _ = search.sort_pad_plan(q_pmz, q_charge, params.q_block)
+    qh, qp, qc = hvs[gather], q_pmz[gather], q_charge[gather]
+    starts = search.block_start_rows(pipe.db, params, qp, qc)
+    if params.q_block != hops.QT:
+        raise RuntimeError(f"q_block {params.q_block}: the comparison assumes 16")
+    db = pipe.db
+    rk = params.k_blocks * db.max_r
+    n_tiles, k = starts.shape[0], params.top_k
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = {}
+    for launcher in FUSED:
+        outs = {t: [torch.empty((n_tiles * hops.QT, k), dtype=torch.int32, device=dev)
+                    for _ in range(4)] for t in libs}
+        partial = {t: torch.empty((n_tiles, n_splits_fns[t](n_tiles, rk, n_sms), 2 * hops.QT,
+                                   k), dtype=torch.int64, device=dev) for t in libs}
+
+        def call(t, launcher=launcher, outs=outs, partial=partial):
+            rc = getattr(libs[t], launcher)(
+                *(x.data_ptr() for x in (qh, qp, qc, db.hvs, db.pmz, db.charge, starts,
+                                         partial[t], *outs[t])),
+                n_tiles, db.n_rows, qh.shape[1], cfg.dim, k, rk, partial[t].shape[1],
+                href.std_scale(params.ppm_tol), float(params.open_tol_da), PAD_PMZ,
+                stream())
+            if rc:
+                raise RuntimeError(f"{t} {launcher}: CUDA error {rc}")
+        name = (f"{launcher.removesuffix('_launch')} whole batch {n_tiles} blocks x {rk} "
+                f"rows x {qh.shape[1]} words, k={k}")
+        cases[name] = (call, outs, False)
+    return cases
 
 
 def event_ms(fn) -> float:
@@ -101,6 +155,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     libs = {"other": other_library(args.other.resolve()), "this": _build.library()}
+    other_ops = _load("other_hamming_ops", args.other.resolve() / "src" / "repro_torch"
+                      / "kernels" / "hamming" / "ops.py")
+    n_splits_fns = {"other": other_ops.n_splits_for, "this": hops.n_splits_for}
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -125,7 +182,7 @@ def main() -> int:
                 r.shape[1], stream())
             if rc:
                 raise RuntimeError(f"{k} hamming_matrix_launch: CUDA error {rc}")
-        cases[name] = (call, outs)
+        cases[name] = (call, outs, True)
 
     cfg = OMSConfig(encode_batch=SPECTRA, seed=0)
     cb = _make_codebooks(cfg, dev)
@@ -144,16 +201,20 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"{k} hdencode_launch: CUDA error {rc}")
     cases[f"hdencode {B} x {P} peaks, dim {32 * W} "
-          f"({int(pre.mask.sum())} valid)"] = (hd_call, hd_outs)
+          f"({int(pre.mask.sum())} valid)"] = (hd_call, hd_outs, True)
+
+    cases.update(fused_cases(libs, n_splits_fns, dev))
 
     result = {}
-    for name, (call, outs) in cases.items():
+    for name, (call, outs, graphed) in cases.items():
         res = {k: {"event_ms": [], "graph_ms": []} for k in libs}
         for k in ("other", "this", "this", "other"):
             res[k]["event_ms"].append(event_ms(lambda: call(k)))
-            res[k]["graph_ms"].append(graph_ms(lambda: call(k)))
+            if graphed:
+                res[k]["graph_ms"].append(graph_ms(lambda: call(k)))
         torch.cuda.synchronize()
-        same = bool((outs["this"] == outs["other"]).all())
+        same = all(bool((a == b).all()) for a, b in zip(
+            *(o if isinstance(o, list) else [o] for o in (outs["this"], outs["other"]))))
         if not same:
             raise RuntimeError(f"{name}: the two trees' outputs differ")
         result[name] = res

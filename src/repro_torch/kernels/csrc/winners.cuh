@@ -4,15 +4,12 @@
 // Ranking uses the composite key (sim << 32) | (0xFFFFFFFF - row): a total
 // order over distinct rows that agrees with (sim desc, row asc), so any
 // reduction or merge order gives the TPU's sequential answer. 0 marks an
-// empty slot. Each warp keeps its own top-k list per (query, window) in
-// shared memory; a lane offers its key only when it beats the list's k-th
-// entry (a ballot), so insertions become rare once the lists fill. At the
-// end of a CTA the warps' lists are merged into one partial list per split,
-// and fused_search_merge merges the splits and decodes the keys.
+// empty slot (a real key has row < 2**31, so its low word is >= 2**31).
 //
-// Masks round exactly as the reference: std_scale = float32(ppm_tol *
-// 1e-6) is rounded once on the host, and the products and differences use
-// __fmul_rn/__fsub_rn so they are never contracted.
+// A CTA keeps one descending list of k keys per (query, window) in shared
+// memory, which all its warps insert into with insert_atomic. At the end of
+// the CTA each list is its partial result for its split, and
+// fused_search_merge merges the splits and decodes the keys.
 #pragma once
 
 #include <cstdint>
@@ -30,7 +27,7 @@ constexpr unsigned FULL = 0xffffffffu;
 typedef unsigned long long winner_t;
 
 // Insert `key` into the descending list of length k; the caller has checked
-// that key beats list[k-1].
+// that key beats list[k-1]. Single-threaded.
 __device__ __forceinline__ void insert_desc(winner_t* list, int k, winner_t key) {
   int i = k - 1;
   while (i > 0 && list[i - 1] < key) {
@@ -40,61 +37,24 @@ __device__ __forceinline__ void insert_desc(winner_t* list, int k, winner_t key)
   list[i] = key;
 }
 
-// Warp-cooperative offer of each lane's key to one shared list.
-__device__ __forceinline__ void offer(winner_t* list, int k, winner_t key, int lane) {
-  winner_t thr = list[k - 1];
-  unsigned m = __ballot_sync(FULL, key > thr);
-  while (m) {
-    const int src = __ffs(m) - 1;
-    const winner_t cand = __shfl_sync(FULL, key, src);
-    if (lane == 0) insert_desc(list, k, cand);
-    __syncwarp();
-    if (lane == src) key = 0ull;
-    thr = list[k - 1];
-    m = __ballot_sync(FULL, key > thr);
+// Insert `key` into a descending shared list of length k that other threads
+// insert into at the same time. Each slot keeps the larger of its value and
+// the key passing through (atomicMax) and the smaller goes on to the next
+// slot, so every key visits slot i unless it stays in a slot above: once
+// all insertions are done, slot i holds the (i+1)-th largest key. At any
+// moment every slot above the one holding v holds a key >= v, so list[k-1]
+// is a safe threshold: a key below it is not among the final k.
+__device__ __forceinline__ void insert_atomic(winner_t* list, int k, winner_t key) {
+  for (int i = 0; i < k && key; ++i) {
+    const winner_t old = atomicMax(list + i, key);
+    key = old < key ? old : key;
   }
 }
 
-// One reference row per lane against the tile's QT queries: apply charge
-// and PAD validity and both windows to sim[i] = dim - hamming, and offer
-// the row's keys to the warp's 2*QT lists. All 32 lanes must call it.
-__device__ __forceinline__ void offer_row(winner_t* lists, int k, int lane,
-                                          const int (&sim)[QT], bool active,
-                                          float rp, int32_t rc, int row,
-                                          const float* s_qp, const int32_t* s_qc,
-                                          float std_scale, float open_tol,
-                                          float pad_pmz) {
-  const bool rvalid = active && rp < pad_pmz;
-  const winner_t row_key = 0xFFFFFFFFull - (uint32_t)row;
-#pragma unroll
-  for (int i = 0; i < QT; ++i) {
-    const float qp = s_qp[i];
-    const bool valid = rvalid && s_qc[i] == rc && sim[i] >= 0;
-    const float d = fabsf(__fsub_rn(qp, rp));
-    const winner_t key = ((winner_t)(uint32_t)sim[i] << 32) | row_key;
-    const winner_t ks = (valid && d <= __fmul_rn(qp, std_scale)) ? key : 0ull;
-    const winner_t ko = (valid && d <= open_tol) ? key : 0ull;
-    offer(lists + (size_t)(2 * i) * k, k, ks, lane);
-    offer(lists + (size_t)(2 * i + 1) * k, k, ko, lane);
-  }
-}
-
-// Merge the NWARPS per-warp lists of a CTA (s_list, NWARPS x NLISTS x k)
-// into its partial slot out (NLISTS x k): one thread per (query, window).
-__device__ __forceinline__ void merge_warp_lists(const winner_t* s_list,
-                                                 winner_t* out, int k, int tid) {
-  if (tid < NLISTS) {
-    winner_t best[KMAX];
-    for (int i = 0; i < k; ++i) best[i] = 0ull;
-    for (int wv = 0; wv < NWARPS; ++wv) {
-      const winner_t* src = s_list + ((size_t)wv * NLISTS + tid) * k;
-      for (int i = 0; i < k; ++i) {
-        if (src[i] <= best[k - 1]) break;     // src is descending
-        insert_desc(best, k, src[i]);
-      }
-    }
-    for (int i = 0; i < k; ++i) out[(size_t)tid * k + i] = best[i];
-  }
+// The sim of the k-th entry of a shared list, 0 while it is not full: a
+// pair with a lower sim cannot enter it. Reads the key's high word.
+__device__ __forceinline__ int list_threshold(const winner_t* list, int k) {
+  return *(reinterpret_cast<const volatile int*>(list + k - 1) + 1);
 }
 
 // Merge the per-split partial winners of every (tile, list) and decode the

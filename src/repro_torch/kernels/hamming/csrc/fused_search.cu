@@ -8,125 +8,85 @@
 // Each window keeps the k best rows ranked by (sim desc, row asc); empty
 // ranks are -1/-1.
 //
-// What bounds it on this card: operations, not HBM — every row word is
-// reused by the 16 queries of a tile. The least time for the function is on
-// the int8 tensor cores (a +-1 dot gives the Hamming tile at 2*dim ops per
-// pair). This kernel takes the popc route instead, and __popc issues at a
-// quarter of the 32-bit add/xor rate (16 per clock per SM on compute
-// capability 9.0), about 7x slower than the tensor-core bound at the
-// main-path shapes; the int8 formulation is
-// ../../hamming_mxu/csrc/fused_search_mxu.cu.
+// What bounds it on this card: operations. At the main-path batch (1,001
+// query blocks x 143,360 rows x 128 words) the Hamming tiles are 2.3e9
+// pairs x 4,096 bits. The popc route (one __popc per pair-word, 16 per
+// clock per SM) needs ~70 ms; the int8 tensor cores (a +-1 dot) ~9.5 ms;
+// the binary tensor cores, mma.sync m16n8k256 .b1 AND-popc at 0.589 per
+// clock per SM (scripts/bmma_probe.py on an NVIDIA H100 80GB HBM3,
+// 700.00 W), ~1.9 ms, so the pairs go there, with
+//   ham(q, r) = |q| + |r| - 2 * popc(q & r)
+// (.xor.popc is emulated on this card, 6x slower). Below that sit the
+// rows: each query block scans its own 143,360 rows, so a kernel that
+// reads them per 16-query tile moves 73.5 GB through L2 a batch.
 //
-// Design:
-//  * One launch covers every query block of the batch. The reference calls
-//    its kernel once per 16-query block inside lax.map, each on the
-//    k_blocks*max_r rows from that block's start row; here a per-tile
-//    start-row vector comes in from the caller and rows stay global
-//    (start_row + column).
-//  * The TPU kernel accumulates winners in its output block because its
-//    last grid axis runs in order. CUDA blocks run in no order, so each
-//    query tile's rows are split across several CTAs (enough to fill the
-//    132 SMs even for a few tiles) and a second kernel merges the per-split
-//    partial winners.
-//  * A CTA keeps its 16 queries in shared memory (8 KB at dim 4096). Each
-//    thread takes one reference row at a time, reads it with 16-byte loads
-//    and accumulates __popc(q ^ r) for all 16 queries in registers.
-//  * Ranking, the per-warp winner lists, their merges and the exact mask
-//    rounding are shared with fused_search_mxu.cu (../../csrc/winners.cuh).
+// Design: the grouped search of ../../csrc/fused_grouped.cuh, which serves
+// GROUP = 8 consecutive query tiles per CTA from one load of each row,
+// streams the rows through shared memory and keeps the accumulators in
+// registers; this file supplies its MMA step (./bmma.cuh, the fragment map
+// of hamming_matrix.cu): per 16-word stage a lane reads 16 bytes of each of
+// its NT rows and two A chunks per tile from the staged queries, and runs
+// 2 x GROUP x NT MMAs. |r| is summed from the same row words (one popc per
+// lane-word, 1/16 of the popc route); |q| once per CTA from the staged
+// queries.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "../../csrc/winners.cuh"
+#include "../../csrc/fused_grouped.cuh"
+#include "bmma.cuh"
 
 namespace {
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS)
-fused_search_partial(const uint32_t* __restrict__ q,
-                     const float* __restrict__ q_pmz,
-                     const int32_t* __restrict__ q_charge,
-                     const uint32_t* __restrict__ r,
-                     const float* __restrict__ r_pmz,
-                     const int32_t* __restrict__ r_charge,
-                     const int32_t* __restrict__ tile_start, int n_rows, int W,
-                     int dim, int k, int rk, int chunk, float std_scale,
-                     float open_tol, float pad_pmz, winner_t* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint32_t* s_q = reinterpret_cast<uint32_t*>(smem_raw);             // QT*W
-  winner_t* s_list = reinterpret_cast<winner_t*>(smem_raw + sizeof(uint32_t) * QT * W);
-  __shared__ float s_qp[QT];
-  __shared__ int32_t s_qc[QT];
+struct BinaryRoute {
+  static constexpr bool kNorms = true;
+  static constexpr size_t scratch_bytes(int) { return 0; }
 
-  const int tile = blockIdx.x;
-  const int split = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const uint32_t* qt = q + (size_t)tile * QT * W;
-  for (int i = tid; i < QT * W; i += THREADS) s_q[i] = qt[i];
-  if (tid < QT) {
-    s_qp[tid] = q_pmz[tile * QT + tid];
-    s_qc[tid] = q_charge[tile * QT + tid];
-  }
-  for (int i = tid; i < NWARPS * NLISTS * k; i += THREADS) s_list[i] = 0ull;
-  __syncthreads();
-
-  const int row0 = tile_start[tile];
-  const int begin = split * chunk;
-  const int end = min(begin + chunk, rk);
-  winner_t* lists = s_list + (size_t)warp * NLISTS * k;
-
-  for (int base = begin + warp * 32; base < end; base += THREADS) {
-    const int local = base + lane;
-    const int row = row0 + local;
-    const bool active = local < end && row < n_rows;
-    int acc[QT];
+  // One 16-word stage (words w0..w0 + 15 of the warp's 32 rows in `stage`,
+  // row-major, zeros past W): c[gi][nt] += popc(q & r) for tile gi's
+  // queries g, g + 8 and n-tile nt's rows; rn[nt] += |row| over this lane's
+  // four words of its row.
+  template <int G>
+  __device__ static __forceinline__ void step(int32_t (&c)[G][NT][4], int (&rn)[NT],
+                                              const uint32_t* s_q, int Wp, int swz,
+                                              const uint32_t* stage, int w0, int, int tid,
+                                              void*) {
+    const int g = (tid & 31) >> 2;
+    const int t = tid & 3;
+    const int qsw = (g & 1) ? swz : 0;          // rows g and g + 8 share parity
+    uint4 rv[NT];
 #pragma unroll
-    for (int i = 0; i < QT; ++i) acc[i] = 0;
-    float rp = pad_pmz;
-    int32_t rc = -1;
-    if (active) {
-      const uint32_t* rr = r + (size_t)row * W;
-      if (VEC == 4) {
-        for (int w = 0; w < W; w += 4) {
-          const uint4 rv = __ldg(reinterpret_cast<const uint4*>(rr + w));
-#pragma unroll
-          for (int i = 0; i < QT; ++i) {
-            const uint4 qv = *reinterpret_cast<const uint4*>(s_q + i * W + w);
-            acc[i] += __popc(rv.x ^ qv.x) + __popc(rv.y ^ qv.y) +
-                      __popc(rv.z ^ qv.z) + __popc(rv.w ^ qv.w);
-          }
-        }
-      } else {
-        for (int w = 0; w < W; ++w) {
-          const uint32_t rv = __ldg(rr + w);
-#pragma unroll
-          for (int i = 0; i < QT; ++i) acc[i] += __popc(rv ^ s_q[i * W + w]);
-        }
-      }
-      rp = __ldg(r_pmz + row);
-      rc = __ldg(r_charge + row);
+    for (int nt = 0; nt < NT; ++nt) {
+      rv[nt] = *reinterpret_cast<const uint4*>(stage + (nt * 8 + g) * STAGE_WORDS + 4 * t);
+      rn[nt] += __popc(rv[nt].x) + __popc(rv[nt].y) + __popc(rv[nt].z) + __popc(rv[nt].w);
     }
-    int sim[QT];
+    const int u = ((w0 >> 2) + t) ^ qsw;
 #pragma unroll
-    for (int i = 0; i < QT; ++i) sim[i] = dim - acc[i];
-    offer_row(lists, k, lane, sim, active, rp, rc, row, s_qp, s_qc, std_scale,
-              open_tol, pad_pmz);
+    for (int gi = 0; gi < G; ++gi) {
+      const uint4 a = *reinterpret_cast<const uint4*>(s_q + (size_t)(gi * QT + g) * Wp + 4 * u);
+      const uint4 b =
+          *reinterpret_cast<const uint4*>(s_q + (size_t)(gi * QT + g + 8) * Wp + 4 * u);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mma_and_popc(c[gi][nt], a.x, b.x, a.y, b.y, rv[nt].x, rv[nt].y);
+        mma_and_popc(c[gi][nt], a.z, b.z, a.w, b.w, rv[nt].z, rv[nt].w);
+      }
+    }
   }
-  __syncthreads();
-  merge_warp_lists(s_list,
-                   partial + ((size_t)tile * gridDim.y + split) * NLISTS * k, k,
-                   tid);
-}
+
+  // sim = dim - (|q| + |r| - 2 popc(q & r)), dq = dim - |q|.
+  __device__ static __forceinline__ int sim(int c, int dq, int rn, int) {
+    return dq - rn + 2 * c;
+  }
+};
 
 }  // namespace
 
 // q (n_tiles*16, W), q_pmz/q_charge (n_tiles*16,), r (n_rows, W),
 // r_pmz/r_charge (n_rows,), tile_start (n_tiles,) int32, partial
 // (n_tiles, n_splits, 32, k) uint64 scratch, outputs (n_tiles*16, k) int32.
-// Tile t scans rows [tile_start[t], tile_start[t] + rk). Launches both
-// kernels on `stream`; returns cudaGetLastError().
+// Tile t scans rows [tile_start[t], tile_start[t] + rk); n_splits CTAs
+// share each group's rows. Launches both kernels on `stream`; returns
+// cudaGetLastError().
 extern "C" int fused_search_launch(
     const void* q, const void* q_pmz, const void* q_charge, const void* r,
     const void* r_pmz, const void* r_charge, const void* tile_start,
@@ -134,36 +94,8 @@ extern "C" int fused_search_launch(
     void* open_row, int n_tiles, int n_rows, int W, int dim, int k, int rk,
     int n_splits, float std_scale, float open_tol, float pad_pmz,
     void* stream) {
-  if (k < 1 || k > KMAX || n_splits < 1 || n_tiles < 1 || W < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunk = (rk + n_splits - 1) / n_splits;
-  const size_t smem = sizeof(uint32_t) * QT * W + sizeof(winner_t) * NWARPS * NLISTS * k;
-  const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const dim3 grid(n_tiles, n_splits);
-#define REPRO_LAUNCH_PARTIAL(V)                                                 \
-  do {                                                                          \
-    if (smem > 48 * 1024) {                                                     \
-      cudaError_t e = cudaFuncSetAttribute(                                     \
-          fused_search_partial<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-          static_cast<int>(smem));                                              \
-      if (e != cudaSuccess) return static_cast<int>(e);                         \
-    }                                                                           \
-    fused_search_partial<V><<<grid, THREADS, smem, st>>>(                       \
-        static_cast<const uint32_t*>(q), static_cast<const float*>(q_pmz),      \
-        static_cast<const int32_t*>(q_charge), static_cast<const uint32_t*>(r), \
-        static_cast<const float*>(r_pmz), static_cast<const int32_t*>(r_charge),\
-        static_cast<const int32_t*>(tile_start), n_rows, W, dim, k, rk, chunk,  \
-        std_scale, open_tol, pad_pmz, static_cast<winner_t*>(partial));            \
-  } while (0)
-  if (vec4)
-    REPRO_LAUNCH_PARTIAL(4);
-  else
-    REPRO_LAUNCH_PARTIAL(1);
-#undef REPRO_LAUNCH_PARTIAL
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_merge(partial, n_tiles, n_splits, k, std_sim, std_row,
-                      open_sim, open_row, st);
+  return launch_grouped<BinaryRoute>(q, q_pmz, q_charge, r, r_pmz, r_charge, tile_start,
+                                     partial, std_sim, std_row, open_sim, open_row, n_tiles,
+                                     n_rows, W, dim, k, rk, n_splits, std_scale, open_tol,
+                                     pad_pmz, static_cast<cudaStream_t>(stream));
 }

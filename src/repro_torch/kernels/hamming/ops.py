@@ -1,6 +1,7 @@
 """Wrappers of the CUDA packed Hamming kernels: the fused dual-window search
-(csrc/fused_search.cu, popc) and the all-pairs Hamming tile
-(csrc/hamming_matrix.cu, binary tensor-core MMA).
+(csrc/fused_search.cu, grouped query tiles on the binary tensor cores) and
+the all-pairs Hamming tile (csrc/hamming_matrix.cu, binary tensor-core
+MMA).
 
 On CPU tensors they run the plain versions (:mod:`.ref`); on CUDA tensors
 they launch the kernel or raise — there is no fallback.
@@ -17,8 +18,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hamming import ref
 
 QT = 16            # queries per kernel tile (csrc: QT)
-THREADS = 256      # threads per CTA (csrc: THREADS)
+GROUP = 8          # query tiles per CTA of the fused kernels (csrc: GROUP)
 K_MAX = 16         # largest top_k the kernel keeps (csrc: KMAX)
+# Fused kernels: waves of CTAs to aim for (their register use fits one CTA
+# per SM), so that groups of unequal row spans even out.
+FUSED_WAVES = 4
+MIN_SPLIT_ROWS = 1024   # never fewer rows per split (four passes of 256)
 # Padding queries carry this charge, which no reference row has.
 PAD_Q_CHARGE = -(2 ** 30)
 
@@ -27,10 +32,24 @@ matrix_launches = _build.LaunchCounter()    # hamming_matrix
 
 
 def n_splits_for(n_tiles: int, rk: int, n_sms: int) -> int:
-    """CTAs per query tile: enough to put ~8 CTAs on every SM even for a
-    handful of tiles, but never fewer than THREADS rows per CTA."""
-    want = -(-8 * n_sms // max(n_tiles, 1))
-    return max(1, min(want, -(-rk // THREADS)))
+    """CTAs per group of GROUP query tiles: FUSED_WAVES waves of one CTA per
+    SM even for a handful of tiles, but never fewer than MIN_SPLIT_ROWS
+    rows of a tile's scan per CTA."""
+    n_groups = -(-n_tiles // GROUP)
+    want = -(-FUSED_WAVES * n_sms // n_groups)
+    return max(1, min(want, -(-rk // MIN_SPLIT_ROWS)))
+
+
+def group_spans(tile_start: torch.Tensor, rk: int, n_rows: int) -> torch.Tensor:
+    """(n_groups, 2) int64 [begin, end) of the rows each CTA group of the
+    fused kernels walks: the union of its GROUP consecutive tiles' scans
+    ``[min start, max start + rk)``, clipped to ``n_rows`` (the kernel
+    computes the same on the device)."""
+    s = tile_start.to(torch.int64)
+    pad = (-s.shape[0]) % GROUP
+    lo = torch.cat([s, s.new_full((pad,), s.max())]).reshape(-1, GROUP).amin(dim=1)
+    hi = torch.cat([s, s.new_full((pad,), s.min())]).reshape(-1, GROUP).amax(dim=1)
+    return torch.stack([lo, torch.maximum(lo, torch.clamp(hi + rk, max=n_rows))], dim=1)
 
 
 def _pad_blocks(x, nqb, q_block, per_block, value):

@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hamming import ops as hops
 from repro_torch.kernels.hamming_mxu import ref
 
-W_MAX_FUSED = 256   # the fused kernel keeps 512 B of A fragments per word
+W_MAX_FUSED = 256   # the fused kernel's limit (csrc: MXU_W_MAX)
 
 launches = _build.LaunchCounter()           # fused_search_mxu
 matrix_launches = _build.LaunchCounter()    # hamming_mxu

@@ -40,7 +40,8 @@ def test_repository_kernels_and_headers_are_found():
     names = {p.name for p in _build.sources()}
     assert {"fused_search.cu", "hamming_matrix.cu", "hdencode.cu",
             "hamming_mxu.cu", "fused_search_mxu.cu", "errors.cu"} <= names
-    assert {p.name for p in _build.headers()} >= {"winners.cuh", "pm1_mma.cuh"}
+    assert {p.name for p in _build.headers()} >= {"winners.cuh", "pm1_mma.cuh",
+                                                   "fused_grouped.cuh", "bmma.cuh"}
     assert len(_build._digest()) == 16
     assert set(_build._SIGNATURES) >= {
         "hamming_matrix_launch", "hamming_mxu_launch", "fused_search_launch",
