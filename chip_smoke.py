@@ -9,10 +9,11 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      dim 4096 and at 7 words, and at the bit-sliced counters' edges: a
      count of 64 (P = 64, every peak valid with one bin and level), P = 1,
      63, 100 and 2100 (the general plane path), and B = 1. Then
-     hamming_matrix against the plain tile at the shapes the main path
-     does not give it: W = 1 and 9, Q = 1 and 17, R = 1, 7 and 8k + 3, and
-     row slices whose base is not 16-byte aligned (W = 7 from an odd row,
-     W = 4 at a 4-byte offset).
+     hamming_matrix and hamming_mxu against the plain tile at the shapes
+     the main path does not give them: W = 1 and 9, Q = 1 and 17, R = 1, 7
+     and 8k + 3, row slices whose base is not 16-byte aligned (W = 7 from
+     an odd row, W = 4 at a 4-byte offset), and W = 300 (hamming_mxu's
+     128-word chunks of A fragments).
   3. the main path at the iPRG2012 scale of Table I: OMSPipeline ingest of
      1,160,000 spectra plus as many decoys, 16,000 queries encoded and
      searched (backend ``fused``, encode backend ``pallas``), FDR at 1%;
@@ -42,10 +43,10 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      prefix widths W = 64 and 8 and at W = 7, and on 2 query blocks against
      the cascade's 4,194,304-row bucket of gathered rows at W = 128 (the
      seed pass and the rescore), where hamming_matrix and hamming_mxu are
-     also timed beside their bound; the fused_search_mxu kernel against its
-     plain version on 8
-     blocks at k = 1 and k = 4, and at 7 words (dim 224, the scalar-load
-     variant).
+     also timed beside their bound and beside torch._int_mm on the
+     bucket's rows unpacked to +-1 int8 beforehand; the fused_search_mxu
+     kernel against its plain version on 8 blocks at k = 1 and k = 4, and
+     at 7 words (dim 224, the scalar-load variant).
   7. fused_search_mxu against fused_search on the whole batch at k = 1
      and k = 4: all four arrays bit-identical.
   8. the kernel backends end to end: search_encoded with kernel_vpu,
@@ -108,11 +109,13 @@ TILE_EDGE_ROWS = 8 * 512 + 3
 # (Q, R, W, word offset of the rows): k-step tails (W = 1, 9), a partial and
 # a second query tile, R = 1, 7 and 8k + 3 (odd: the scalar stores), a W = 7
 # row slice from an odd row and a W = 4 one at a 4-byte offset (scalar loads
-# for a row base that is not 16-byte aligned).
+# for a row base that is not 16-byte aligned), and W = 300 (hamming_mxu
+# takes its A fragments in 128-word chunks: two full and a partial one).
 TILE_EDGE_SHAPES = ((16, TILE_EDGE_ROWS, 1, 0), (16, TILE_EDGE_ROWS, 9, 0),
                     (1, TILE_EDGE_ROWS, 128, 0), (17, TILE_EDGE_ROWS, 128, 0),
                     (16, 1, 128, 0), (16, 7, 128, 0), (16, TILE_EDGE_ROWS, 128, 0),
-                    (16, TILE_EDGE_ROWS, 7, 7), (16, TILE_EDGE_ROWS, 4, 1))
+                    (16, TILE_EDGE_ROWS, 7, 7), (16, TILE_EDGE_ROWS, 4, 1),
+                    (16, TILE_EDGE_ROWS, 300, 0))
 # The kernel backends of phase 8 and the kernel each of them launches.
 BACKEND_KERNELS = {"kernel_vpu": "hamming_matrix", "kernel_mxu": "hamming_mxu",
                    "fused_mxu": "fused_search_mxu"}
@@ -801,10 +804,11 @@ def random_words(torch, g, n: int, w: int):
 
 
 def phase_tile_edges(torch) -> None:
-    """hamming_matrix at the shapes the main path does not give it. The
-    first query and reference row are all ones and the second row all
-    zeros, the extremes of |q| and |r|."""
+    """hamming_matrix and hamming_mxu (dim 32 * W) at the shapes the main
+    path does not give them. The first query and reference row are all
+    ones and the second row all zeros, the extremes of |q| and |r|."""
     from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming_mxu import ops as mops
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     for Q, R, W, off in TILE_EDGE_SHAPES:
         q = random_words(torch, g, Q, W)
@@ -815,17 +819,19 @@ def phase_tile_edges(torch) -> None:
         r[1:2] = 0
         require(r.is_contiguous() and (off == 0 or r.data_ptr() % 16 != 0),
                 "tile edge case: the row slice is not where the case needs it")
-        got = hops.hamming_matrix(q, r)
+        vpu, mxu = hops.hamming_matrix(q, r), mops.hamming_matrix(q, r, 32 * W)
         torch.cuda.synchronize()
-        require(equal(got, plain_tile(q, r)), f"hamming_matrix kernel differs from "
-                f"plain at Q = {Q}, R = {R}, W = {W}, row offset {off} words")
-    log(f"[check] hamming_matrix kernel == plain at (Q, R, W, row offset in words) "
-        f"{', '.join(str(c) for c in TILE_EDGE_SHAPES)}: bit-identical")
+        want = plain_tile(q, r)
+        where = f"at Q = {Q}, R = {R}, W = {W}, row offset {off} words"
+        require(equal(vpu, want), f"hamming_matrix kernel differs from plain {where}")
+        require(equal(mxu, want), f"hamming_mxu kernel differs from plain {where}")
+    log(f"[check] hamming_matrix and hamming_mxu kernels == plain at (Q, R, W, row "
+        f"offset in words) {', '.join(str(c) for c in TILE_EDGE_SHAPES)}: bit-identical")
 
 
 def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
     import numpy as np
-    from repro_torch.core import search
+    from repro_torch.core import packing, search
     from repro_torch.kernels.hamming import ops as hops
     from repro_torch.kernels.hamming import ref as href
     from repro_torch.kernels.hamming_mxu import ops as mops
@@ -874,9 +880,25 @@ def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
               "mxu_ms": cuda_ms(lambda: mops.hamming_matrix(q, r, dim)),
               "bound_ms": (Rb * Wb * 4 + q.numel() * 4 + QB * Rb * 4)
               / HBM_BYTES_PER_S * 1e3, "shape": f"{QB} x {Rb} x {Wb}"}
+    # Library yardstick at the bucket shape: one torch._int_mm on +-1 int8
+    # operands unpacked beforehand (not timed; B 17.2 GB, unpacked in row
+    # chunks, multiplied in one call), A padded to the 32 rows its shape
+    # rules want.
+    a8 = torch.zeros((32, dim), dtype=torch.int8, device=DEVICE)
+    a8[:QB] = packing.packed_to_pm1(q)
+    b8 = torch.empty((Rb, dim), dtype=torch.int8, device=DEVICE)
+    for i in range(0, Rb, PLAIN_TILE_ROWS):
+        b8[i:i + PLAIN_TILE_ROWS] = packing.packed_to_pm1(r[i:i + PLAIN_TILE_ROWS])
+    dot = torch._int_mm(a8, b8.t())
+    require(equal((dim - dot[:QB]) // 2, mops.hamming_matrix(q, r, dim)),
+            "torch._int_mm yardstick != hamming_mxu on the row bucket")
+    del dot
+    bucket["library_ms"] = cuda_ms(lambda: torch._int_mm(a8, b8.t()))
+    del a8, b8
     log(f"[times] at the cascade's bucket shape ({bucket['shape']} words): "
         f"hamming_matrix kernel {bucket['ms']:.4f} ms, hamming_mxu kernel "
-        f"{bucket['mxu_ms']:.4f} ms, bound {bucket['bound_ms']:.4f} ms (bytes)")
+        f"{bucket['mxu_ms']:.4f} ms, bound {bucket['bound_ms']:.4f} ms (bytes), "
+        f"torch._int_mm {bucket['library_ms']:.4f} ms")
     del r
     for k in (1, 4):
         kw = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim, k=k,
@@ -1181,7 +1203,7 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
          "bound_by": t_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
          "shape": tile_shape,
          "bucket_ms": bucket["ms"], "bucket_bound_ms": bucket["bound_ms"],
-         "bucket_shape": bucket["shape"]},
+         "bucket_library_ms": bucket["library_ms"], "bucket_shape": bucket["shape"]},
         {"name": "hamming_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming_mxu/csrc/hamming_mxu.cu",
          "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:60",
@@ -1192,7 +1214,7 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
          "bound_by": t_by, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
          "shape": tile_shape,
          "bucket_ms": bucket["mxu_ms"], "bucket_bound_ms": bucket["bound_ms"],
-         "bucket_shape": bucket["shape"]},
+         "bucket_library_ms": bucket["library_ms"], "bucket_shape": bucket["shape"]},
         {"name": "fused_search_mxu", "route": "cuda",
          "source": "src/repro_torch/kernels/hamming_mxu/csrc/fused_search_mxu.cu",
          "replaces": "src/repro/kernels/hamming_mxu/hamming_mxu.py:99",

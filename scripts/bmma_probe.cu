@@ -10,8 +10,13 @@
 // independent MMAs, for the instruction rate) and probe_fused_rate (the
 // fused search kernels' shape: one CTA of 8 warps per SM, 8 x 4 independent
 // accumulators per warp, each A fragment read from shared memory once per
-// step and used on 4 MMAs; with `expand`, each B operand is the +-1
-// expansion of a packed word's nibble, as fused_search_mxu.cu computes it).
+// step and used on 4 MMAs; `expand` picks how each B operand comes from a
+// packed word: 0 the word itself, 1 the +-1 expansion of a nibble as
+// fused_search_mxu.cu computes it, 2 a shift and an AND (0/1 bytes of a
+// strided bit map), 3 one AND (0 / 2^p bytes, hamming_mxu.cu's weighted
+// map)) and probe_tile_rate (hamming_mxu.cu's shape: one CTA of 8 warps
+// per SM, one query tile, 4 n8 tiles and 8 accumulators per warp, every
+// MMA's B operand made from a packed word of its own by `expand`).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -85,7 +90,16 @@ __device__ __forceinline__ uint32_t pm1_nibble(uint32_t w, int shift) {
 constexpr int FUSED_TILES = 8;     // A fragments (query tiles) per step
 constexpr int FUSED_NT = 4;        // B fragments (n8 row tiles) per step
 
-template <bool EXPAND>
+// B register `reg` (0 or 1) of lane t from packed word w, by expand mode.
+template <int EXPAND>
+__device__ __forceinline__ uint32_t b_operand(uint32_t w, int t, int reg) {
+  if constexpr (EXPAND == 1) return pm1_nibble(w, 16 * reg + 4 * t);
+  if constexpr (EXPAND == 2) return (w >> (4 * reg + t)) & 0x01010101u;
+  if constexpr (EXPAND == 3) return w & (0x01010101u << (4 * reg + 1));
+  return reg ? w >> 1 : w;
+}
+
+template <int EXPAND>
 __global__ void fused_rate_kernel(int32_t* out, int iters) {
   __shared__ uint4 s_a[FUSED_TILES * 32];
   const int lane = threadIdx.x & 31;
@@ -107,8 +121,8 @@ __global__ void fused_rate_kernel(int32_t* out, int iters) {
 #pragma unroll
     for (int n = 0; n < FUSED_NT; ++n) {
       w[n] = w[n] * 1664525u + 1013904223u;           // a new packed word
-      b0[n] = EXPAND ? pm1_nibble(w[n], 4 * t) : w[n];
-      b1[n] = EXPAND ? pm1_nibble(w[n], 16 + 4 * t) : w[n] >> 1;
+      b0[n] = b_operand<EXPAND>(w[n], t, 0);
+      b1[n] = b_operand<EXPAND>(w[n], t, 1);
     }
     uint4 a[FUSED_TILES];
 #pragma unroll
@@ -124,6 +138,54 @@ __global__ void fused_rate_kernel(int32_t* out, int iters) {
   for (int j = 0; j < FUSED_TILES; ++j)
 #pragma unroll
     for (int n = 0; n < FUSED_NT; ++n) sum += c[j][n][0] + c[j][n][1] + c[j][n][2] + c[j][n][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
+}
+
+constexpr int TILE_NT = 4;         // n8 tiles per warp in hamming_mxu.cu
+
+template <int EXPAND>
+__global__ void tile_rate_kernel(int32_t* out, int iters) {
+  __shared__ uint4 s_a[16 * 32];
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const uint32_t s = threadIdx.x * 0x9E3779B9u + blockIdx.x;
+  for (int i = threadIdx.x; i < 16 * 32; i += blockDim.x)
+    s_a[i] = make_uint4(s, s ^ 5u, s + 7u, s * 3u);
+  __syncthreads();
+  int32_t c[2][TILE_NT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < TILE_NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[h][n][i] = 0;
+  uint32_t w[TILE_NT] = {s, s * 7u, s ^ 0x55u, s + 99u};
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int n = 0; n < TILE_NT; ++n) w[n] = w[n] * 1664525u + 1013904223u;
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const uint4 a = s_a[m * 32 + lane];
+#pragma unroll
+      for (int n = 0; n < TILE_NT; ++n) {
+        const uint32_t x = w[n] ^ (0x9E3779B9u * (m + 1));   // a word per MMA
+        uint32_t b0, b1;
+        if constexpr (EXPAND == 3) {
+          b0 = x & (0x01010101u << (m & 3));
+          b1 = x & (0x01010101u << (4 + (m & 3)));
+        } else {
+          b0 = b_operand<EXPAND>(x, t, 0);
+          b1 = b_operand<EXPAND>(x, t, 1);
+        }
+        mma(c[m & 1][n], a.x, a.y, a.z, a.w, b0, b1);
+      }
+    }
+  }
+  int32_t sum = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int n = 0; n < TILE_NT; ++n) sum += c[h][n][0] + c[h][n][1] + c[h][n][2] + c[h][n][3];
   out[blockIdx.x * blockDim.x + threadIdx.x] = sum;
 }
 
@@ -145,9 +207,25 @@ extern "C" int probe_chains() { return CHAINS; }
 // FUSED_TILES * FUSED_NT MMAs per warp and iteration, 256 threads a CTA.
 extern "C" int probe_fused_rate(void* out, int blocks, int iters, int expand, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (expand)
-    fused_rate_kernel<true><<<blocks, 256, 0, st>>>(static_cast<int32_t*>(out), iters);
-  else
-    fused_rate_kernel<false><<<blocks, 256, 0, st>>>(static_cast<int32_t*>(out), iters);
+  int32_t* o = static_cast<int32_t*>(out);
+  switch (expand) {
+    case 1: fused_rate_kernel<1><<<blocks, 256, 0, st>>>(o, iters); break;
+    case 2: fused_rate_kernel<2><<<blocks, 256, 0, st>>>(o, iters); break;
+    case 3: fused_rate_kernel<3><<<blocks, 256, 0, st>>>(o, iters); break;
+    default: fused_rate_kernel<0><<<blocks, 256, 0, st>>>(o, iters);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16 * TILE_NT MMAs per warp and iteration, 256 threads a CTA.
+extern "C" int probe_tile_rate(void* out, int blocks, int iters, int expand, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int32_t* o = static_cast<int32_t*>(out);
+  switch (expand) {
+    case 1: tile_rate_kernel<1><<<blocks, 256, 0, st>>>(o, iters); break;
+    case 2: tile_rate_kernel<2><<<blocks, 256, 0, st>>>(o, iters); break;
+    case 3: tile_rate_kernel<3><<<blocks, 256, 0, st>>>(o, iters); break;
+    default: tile_rate_kernel<0><<<blocks, 256, 0, st>>>(o, iters);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,8 +11,13 @@ random words against numpy in the word map of
 instruction rate (CUDA events, median of 10) with every SM full of warps
 running independent MMAs, and again in the fused search kernels' shape
 (one CTA of 8 warps per SM, 32 accumulators a warp, A read from shared
-memory; for the int8 MMA also with every B operand expanded from a packed
-word as fused_search_mxu.cu does). Needs a GPU and ``nvcc``; the libraries
+memory; for the int8 MMA also with every B operand made from a packed word
+by the nibble expansion of fused_search_mxu.cu, by a shift and an AND per
+register (0/1 bytes), and by one AND per register, the 0 / 2^p bytes of
+hamming_mxu.cu); and, for the int8 MMA, in hamming_mxu.cu's shape (one
+CTA of 8 warps per SM, one query tile, 4 n8 tiles, 8 accumulators a warp,
+each MMA's B operand made from a packed word of its own, by the same
+three expansions). Needs a GPU and ``nvcc``; the libraries
 go to ``build/bmma_probe/`` (git-ignored). The last line is one JSON
 object.
 """
@@ -39,6 +44,13 @@ VARIANTS = {0: "b1.and.popc m16n8k256", 1: "b1.xor.popc m16n8k256",
 K_BITS = {0: 256, 1: 256, 2: 32}     # multiply-adds per output element
 THREADS = 256
 ITERS = 4096
+# probe_fused_rate's `expand`: how each int8 B register comes from a packed
+# word (bmma_probe.cu b_operand).
+EXPANDS = (0, 1, 2, 3)
+EXPAND_KEYS = {0: "", 1: "_b_expanded", 2: "_b_shift_and", 3: "_b_and"}
+EXPAND_NAMES = {0: "", 1: ", B +-1 nibble expansion (~5 instructions a register)",
+                2: ", B 0/1 bytes (shift + AND a register)",
+                3: ", B 0 / 2^p bytes (one AND a register)"}
 
 
 def build(variant: int, out_dir: Path):
@@ -110,6 +122,7 @@ def main() -> int:
                                    ctypes.c_int, ctypes.c_void_p]
         lib.probe_fused_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                          ctypes.c_int, ctypes.c_void_p]
+        lib.probe_tile_rate.argtypes = lib.probe_fused_rate.argtypes
         ok = True
         for _ in range(4):
             a = rng.integers(0, 2 ** 32, (16, 8), dtype=np.uint64).astype(np.uint32)
@@ -141,16 +154,28 @@ def main() -> int:
               f"{res['tera_ops_per_s']:.1f} T bit/byte-ops/s")
         # The fused kernels' shape: n_sms CTAs of 8 warps, 32 MMAs a round.
         fused_out = torch.empty(n_sms * THREADS, dtype=torch.int32, device=dev)
-        for expand in ((0, 1) if v == 2 else (0,)):
+        for expand in (EXPANDS if v == 2 else (0,)):
             def fused_run(expand=expand):
                 if lib.probe_fused_rate(fused_out.data_ptr(), n_sms, ITERS, expand, stream):
                     raise RuntimeError(f"{name}: probe_fused_rate launch failed")
             fused_ms = median_ms(fused_run)
             n_fused = n_sms * (THREADS // 32) * ITERS * 32
-            key = "fused_shape" + ("_b_expanded" if expand else "")
+            key = "fused_shape" + EXPAND_KEYS[expand]
             res[key + "_mma_per_clk_per_sm"] = n_fused / (fused_ms * 1e-3) / clk_hz / n_sms
             print(f"[probe] {name}, fused kernels' shape (8 warps/SM, 32 accumulators"
-                  f"{', B expanded from packed words' if expand else ''}): "
+                  f"{EXPAND_NAMES[expand]}): "
+                  f"{res[key + '_mma_per_clk_per_sm']:.3f} per clock per SM")
+        # hamming_mxu.cu's shape: n_sms CTAs of 8 warps, 64 MMAs a round.
+        for expand in (EXPANDS if v == 2 else ()):
+            def tile_run(expand=expand):
+                if lib.probe_tile_rate(fused_out.data_ptr(), n_sms, ITERS, expand, stream):
+                    raise RuntimeError(f"{name}: probe_tile_rate launch failed")
+            tile_ms = median_ms(tile_run)
+            n_tile = n_sms * (THREADS // 32) * ITERS * 64
+            key = "mxu_tile_shape" + EXPAND_KEYS[expand]
+            res[key + "_mma_per_clk_per_sm"] = n_tile / (tile_ms * 1e-3) / clk_hz / n_sms
+            print(f"[probe] {name}, hamming_mxu's shape (8 warps/SM, 8 accumulators, a "
+                  f"packed word per MMA{EXPAND_NAMES[expand]}): "
                   f"{res[key + '_mma_per_clk_per_sm']:.3f} per clock per SM")
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi,

@@ -7,9 +7,9 @@ Each tree's kernel library is built from its own sources (by its own
 ``repro_torch/kernels/_build.py``, into its own ``build/``) and called
 through its C launchers on the same device tensors:
 
-* hamming_matrix at the main path's tile (16 queries x 143,360 rows x 128
-  words), at the dimension cascade's prefix tile (the same rows at 8 words)
-  and at its row bucket (16 x 4,194,304 x 128 words);
+* hamming_matrix and hamming_mxu at the main path's tile (16 queries x
+  143,360 rows x 128 words), at the dimension cascade's prefix tile (the
+  same rows at 8 words) and at its row bucket (16 x 4,194,304 x 128 words);
 * hdencode on 4,096 library spectra x 64 peaks at dim 4096 (the synthetic
   iPRG2012-like generator, seed 0, preprocessed as the ingest does);
 * fused_search and fused_search_mxu on the whole Table I batch (the
@@ -69,7 +69,7 @@ def other_library(path: Path) -> ctypes.CDLL:
     """Build and load the kernel library of the checkout at ``path``."""
     mod = _load("other_build", path / "src" / "repro_torch" / "kernels" / "_build.py")
     lib = ctypes.CDLL(str(mod.build()))
-    for name in ("hamming_matrix_launch", "hdencode_launch", *FUSED):
+    for name in ("hamming_matrix_launch", "hamming_mxu_launch", "hdencode_launch", *FUSED):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = _build._SIGNATURES[name]
     return lib
@@ -168,21 +168,24 @@ def main() -> int:
     q = words(16, 128)
     rows = words(BUCKET_ROWS, 128)
     cases = {}
-    for name, r in (("hamming_matrix main tile 16 x 143360 x 128", rows[:MAIN_ROWS]),
-                    ("hamming_matrix prefix tile 16 x 143360 x 8",
-                     rows[:MAIN_ROWS, :8].contiguous()),
-                    ("hamming_matrix bucket 16 x 4194304 x 128", rows)):
-        qw = q[:, :r.shape[1]].contiguous()
-        outs = {k: torch.empty((16, r.shape[0]), dtype=torch.int32, device=dev)
-                for k in libs}
+    for kernel in ("hamming_matrix", "hamming_mxu"):
+        for what, r in (("main tile", rows[:MAIN_ROWS]),
+                        ("prefix tile", rows[:MAIN_ROWS, :8].contiguous()),
+                        ("bucket", rows)):
+            qw = q[:, :r.shape[1]].contiguous()
+            outs = {k: torch.empty((16, r.shape[0]), dtype=torch.int32, device=dev)
+                    for k in libs}
 
-        def call(k, qw=qw, r=r, outs=outs):
-            rc = libs[k].hamming_matrix_launch(
-                qw.data_ptr(), r.data_ptr(), outs[k].data_ptr(), 16, r.shape[0],
-                r.shape[1], stream())
-            if rc:
-                raise RuntimeError(f"{k} hamming_matrix_launch: CUDA error {rc}")
-        cases[name] = (call, outs, True)
+            def call(k, kernel=kernel, qw=qw, r=r, outs=outs):
+                R, W = r.shape
+                args = (qw.data_ptr(), r.data_ptr(), outs[k].data_ptr(), 16, R, W)
+                if kernel == "hamming_mxu":
+                    rc = libs[k].hamming_mxu_launch(*args, 32 * W, stream())
+                else:
+                    rc = libs[k].hamming_matrix_launch(*args, stream())
+                if rc:
+                    raise RuntimeError(f"{k} {kernel}_launch: CUDA error {rc}")
+            cases[f"{kernel} {what} 16 x {r.shape[0]} x {r.shape[1]}"] = (call, outs, True)
 
     cfg = OMSConfig(encode_batch=SPECTRA, seed=0)
     cb = _make_codebooks(cfg, dev)
