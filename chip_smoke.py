@@ -67,7 +67,34 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      at one main-path block beside torch._int_mm on pre-unpacked +-1 int8;
      fused_search_mxu on the whole batch, its plain version run once,
      compared and timed).
-All five kernels go into one ``kernels`` JSON line.
+ 11. top_k above 16: both fused kernels against their plain versions on
+     the main-path check blocks at k = 17, 32 and 64, and timed on the
+     whole batch at k = 16, 17, 32 and 64; the limits that were widened
+     (fused_search_mxu past 256 words, the fused kernels at their widest
+     W, the tile kernels past 65,535 query tiles, hamming_matrix past
+     3,632 words, the grouped launch past 65,535 groups) against the plain
+     versions; the limits that remain raise their stated errors.
+ 12. the store: OMSPipeline.ingest of the Table I library (chunks of 65,536
+     rows) into a store under build/ (its free space printed first), then
+     from_store(resident=True): its DB equals phase 3's in all eight
+     fields and its fused search equals phase 3's result.
+ 13. streamed search: from_store(resident=False) at 2^18 rows a slab, at
+     37 blocks (a prime) and at the whole store, with fused and fused_mxu:
+     each equal to phase 3's result (6 arrays, both FDRs), one fused launch
+     per streamed slab; per slab the host gather, upload and search times,
+     slabs touched, rows and bytes read, and the peak device memory above
+     the baseline beside the resident DB's bytes.
+ 14. the streamed exact dimension cascade at prefix_words 8 with fused:
+     equal to the resident cascade, run beside it, and to phase 3's result.
+ 15. the narrow→open cascade at 1 Da with fused, resident and streamed:
+     equal to each other (merged result, both FDRs, stage-1 identified,
+     stage queries and results); with run_stage1 False equal to
+     search_encoded; identified count, each stage's time, scanned rows
+     against pure_open_scanned_rows, and bytes streamed.
+All five kernels go into one ``kernels`` JSON line; ``launches`` is the
+main path's count (the backend's own path for the tile and fused_mxu
+kernels) and ``launches_by_path`` each path's, counts set to 0 just before
+the path and read just after.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the reference package.
@@ -75,6 +102,7 @@ neither jax nor the reference package.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -157,6 +185,20 @@ FUSED_EDGE_CASES = (
     ("W = 12", 3000, 12, tuple(range(0, 900, 100)), 1024, 16),
     ("W = 256", 3000, 256, tuple(range(0, 90, 10)), 1024, 16),
 )
+
+
+# Phases 11-15: top_k above the old cap of 16, the store, the streaming
+# engine and the narrow→open cascade.
+TOPK_CHECK_KS = (17, 32, 64)
+TOPK_TIME_KS = (16, 17, 32, 64)
+STORE_DIR = HERE / "build" / "smoke_store"
+# Streamed slab sizes in rows: 2^18, a prime number of blocks (37 of 4,096
+# rows), the whole store.
+STREAM_SLAB_ROWS = (1 << 18, 37 * 4096, 1 << 30)
+STREAM_KERNELS = {"fused": "fused_search", "fused_mxu": "fused_search_mxu"}
+STREAM_CASCADE_PREFIX = 8
+NARROW_TOL_DA = 1.0
+GRID_Y_MAX = 65535       # CUDA's grid y limit: groups of one fused launch
 
 
 def log(msg: str) -> None:
@@ -1227,6 +1269,343 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     ]
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: top_k above 16, and the launch limits
+# ---------------------------------------------------------------------------
+
+
+def require_raises(fn, match: str, what: str) -> None:
+    """``fn()`` must raise ValueError whose message contains ``match``."""
+    try:
+        fn()
+    except ValueError as e:
+        require(match in str(e), f"{what}: raised {e!r}, expected {match!r}")
+        log(f"[limits] {what}: raises ValueError({str(e)!r})")
+        return
+    fail(f"{what}: did not raise")
+
+
+def _plain_pair(torch, name, kern, plain, args, kw, what) -> None:
+    got = kern.fused_search(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain.fused_search(*args, **kw)
+    for out, g, w in zip(FUSED_OUTS, got, want):
+        require(equal(g, w), f"{name} kernel differs from plain ({out}) {what}")
+
+
+def phase_topk(torch, pipe, hvs, q_pmz, q_charge) -> dict:
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    from repro_torch.kernels.hamming_mxu import ref as mref
+    kernels = (("fused_search", hops, href), ("fused_search_mxu", mops, mref))
+    params, args, pick, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
+    base = dict(q_block=params.q_block, rk=rk, dim=pipe.cfg.dim,
+                ppm_tol=params.ppm_tol, open_tol_da=params.open_tol_da)
+    for k in TOPK_CHECK_KS:
+        for name, kern, plain in kernels:
+            _plain_pair(torch, name, kern, plain, args, dict(base, k=k),
+                        f"at k={k} on the main-path check blocks")
+        log(f"[topk] fused_search and fused_search_mxu kernels == plain on "
+            f"{len(pick)} main-path query blocks x {rk} rows at k={k}: bit-identical")
+    # Times on the whole batch: k <= 16 is the old path; above, the lists
+    # grow and G falls to 1 where a CTA's shared memory no longer fits 8.
+    _, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    db = pipe.db
+    fargs = (qh, qp, qc, db.hvs, db.pmz, db.charge, starts)
+    times = {}
+    for name, kern, _ in kernels:
+        scratch = mops.FUSED_SCRATCH_PER_TILE if kern is mops else 0
+        for k in TOPK_TIME_KS:
+            g = (hops.GROUP if hops.fused_smem_bytes(hops.GROUP, db.n_words, k, scratch)
+                 <= hops.FUSED_SMEM_BUDGET else 1)
+            ms = cuda_ms(lambda: kern.fused_search(*fargs, **dict(base, k=k)), iters=3)
+            times[f"{name} k={k}"] = ms
+            log(f"[topk] {name} on the whole batch ({starts.shape[0]} blocks x {rk} "
+                f"rows) at k={k}: {ms:.3f} ms ({g} query tiles per CTA)")
+    phase_limits(torch, kernels)
+    return times
+
+
+def phase_limits(torch, kernels) -> None:
+    """The widened limits against the plain versions; the remaining ones
+    raise their stated errors."""
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming import ref as href
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    # fused_search_mxu past its old 256 words; both at their widest W (k=1).
+    for name, kern, plain, cases in (
+            ("fused_search_mxu", mops, kernels[1][2], ((300, 4), (2416, 1))),
+            ("fused_search", hops, kernels[0][2], ((2480, 1),))):
+        for W, k in cases:
+            args = fused_edge_inputs(torch, g, 600, W, (0, 40, 300), 256, 16)
+            _plain_pair(torch, name, kern, plain, args,
+                        dict(q_block=16, rk=256, dim=32 * W, k=k), f"at W={W}")
+            log(f"[limits] {name} kernel == plain at W = {W} words, k={k} "
+                f"(3 blocks x 256 rows): bit-identical")
+    # Remaining limits: k > K_MAX; W past the shared-memory bound.
+    args = fused_edge_inputs(torch, g, 600, 8, (0,), 256, 16)
+    for name, kern, _ in kernels:
+        require_raises(lambda: kern.fused_search(*args, q_block=16, rk=256, dim=256,
+                                                 k=hops.K_MAX + 1),
+                       f"keeps 1..{hops.K_MAX} winners", f"{name} at k={hops.K_MAX + 1}")
+    for name, kern, W in (("fused_search", hops, 2496), ("fused_search_mxu", mops, 2432)):
+        wide = fused_edge_inputs(torch, g, 64, W, (0,), 64, 16)
+        require_raises(lambda: kern.fused_search(*wide, q_block=16, rk=64, dim=32 * W, k=1),
+                       "of shared memory", f"{name} at W={W}")
+    # The tile kernels past 65,535 query tiles (two launches each) and
+    # hamming_matrix past its 3,632 staged words (word chunks, summed).
+    for Q, R, W in ((hops.TILE_Q_CHUNK + 17, 9, 1), (16, 1000, 4000)):
+        q, r = random_words(torch, g, Q, W), random_words(torch, g, R, W)
+        counters = _counters()
+        before = (counters["hamming_matrix"].count, counters["hamming_mxu"].count)
+        vpu, mxu = hops.hamming_matrix(q, r), mops.hamming_matrix(q, r, 32 * W)
+        torch.cuda.synchronize()
+        want = href.hamming_matrix(q, r)
+        require(equal(vpu, want), f"hamming_matrix differs from plain at Q={Q}, W={W}")
+        require(equal(mxu, want), f"hamming_mxu differs from plain at Q={Q}, W={W}")
+        n = (counters["hamming_matrix"].count - before[0],
+             counters["hamming_mxu"].count - before[1])
+        log(f"[limits] hamming_matrix and hamming_mxu == plain at Q = {Q}, R = {R}, "
+            f"W = {W} (launches {n[0]} / {n[1]}): bit-identical")
+        del q, r, vpu, mxu, want
+    # The grouped launch past 65,535 groups of 8 tiles: kernels on the
+    # whole batch, plain versions on the blocks around the launch boundary.
+    nqb = GRID_Y_MAX * hops.GROUP + 17
+    n_rows, rk = 2048, 256
+    starts = torch.sort(torch.randint(0, n_rows - rk, (nqb,), generator=g,
+                                      device=DEVICE, dtype=torch.int32)).values
+    q, qp, qc, r, rp, rc, st = fused_edge_inputs(torch, g, n_rows, 1, (0,), rk, 16)
+    src = torch.clamp(starts.repeat_interleave(16).long()
+                      + torch.randint(0, rk, (nqb * 16,), generator=g, device=DEVICE),
+                      max=n_rows - 7)
+    q = r[src].contiguous()
+    qp = (rp[src] + 0.3).contiguous()
+    qc = rc[src].contiguous()
+    kw = dict(q_block=16, rk=rk, dim=32, k=2)
+    b0 = GRID_Y_MAX * hops.GROUP - 10
+    sub = slice(b0 * 16, nqb * 16)
+    for name, kern, plain in kernels:
+        got = kern.fused_search(q, qp, qc, r, rp, rc, starts, **kw)
+        torch.cuda.synchronize()
+        want = plain.fused_search(q[sub], qp[sub], qc[sub], r, rp, rc,
+                                  starts[b0:].contiguous(), **kw)
+        for out, a, b in zip(FUSED_OUTS, got, want):
+            require(equal(a[sub], b), f"{name} past {GRID_Y_MAX} groups differs from "
+                    f"plain ({out})")
+    log(f"[limits] fused_search and fused_search_mxu on {nqb} query blocks "
+        f"({-(-nqb // hops.GROUP)} groups of {hops.GROUP} tiles) == plain on the "
+        f"{nqb - b0} blocks around the launch boundary: bit-identical")
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the store
+# ---------------------------------------------------------------------------
+
+
+DB_FIELDS = ("hvs", "pmz", "charge", "is_decoy", "orig_idx", "block_min",
+             "block_max", "block_charge")
+
+
+def db_nbytes(db) -> int:
+    return sum(getattr(db, f).numel() * getattr(db, f).element_size() for f in DB_FIELDS)
+
+
+def phase_store(torch, ds, cfg, pipe, hvs, q_pmz, q_charge, out):
+    from repro_torch.core.pipeline import OMSPipeline
+    from repro_torch.kernels.hdencode import ops as hd_ops
+    STORE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    need = pipe.db.n_rows * (4 * cfg.n_words + 13)
+    free = shutil.disk_usage(STORE_DIR.parent).free
+    log(f"[store] free space at {STORE_DIR.parent}: "
+        f"{free / 1e9:.2f} GB; the store needs ~{need / 1e9:.2f} GB")
+    require(free > 2 * need, f"not enough free disk for the store: {free} bytes "
+            f"free, {2 * need} wanted")
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    hd_ops.launches.reset()
+    t0 = time.perf_counter()
+    store = OMSPipeline.ingest(cfg, ds.refs, str(STORE_DIR), device=DEVICE,
+                               chunk_rows=CHUNK_ROWS)
+    torch.cuda.synchronize()
+    t_ingest = time.perf_counter() - t0
+    n_hd = hd_ops.launches.count
+    require(n_hd > 0, "the store ingest launched no hdencode kernel")
+    t0 = time.perf_counter()
+    spipe = OMSPipeline.from_store(store, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    for f in DB_FIELDS:
+        require(equal(getattr(spipe.db, f), getattr(pipe.db, f)),
+                f"store-loaded DB differs from the in-memory one ({f})")
+    sout, t_search, counts = _counted(torch, lambda: spipe.search_encoded(hvs, q_pmz, q_charge))
+    require(_outputs_equal(sout, out), "store-loaded fused search differs from phase 3")
+    require(counts["fused_search"] > 0, "store-loaded search launched no fused_search")
+    log(f"[store] ingest of {store.n_targets} spectra + decoys into {len(store.shards)} "
+        f"shards, {store.nbytes() / 1e9:.3f} GB, in {t_ingest:.2f}s ({n_hd} hdencode "
+        f"launches); from_store(resident=True) in {t_load:.2f}s: DB == in-memory DB in "
+        f"all 8 fields; fused search == phase 3 (6 arrays, both FDRs) in "
+        f"{t_search:.3f}s")
+    del spipe, sout
+    return store, {"hdencode": n_hd, "fused_search": counts["fused_search"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: streamed search
+# ---------------------------------------------------------------------------
+
+
+def _slab_line(stats) -> str:
+    rows = stats["slabs"]
+    g = [r["gather_s"] for r in rows]
+    u = [r["upload_ms"] for r in rows]
+    k = [r["search_ms"] for r in rows]
+    return (f"per slab: host gather mean {statistics.mean(g):.4f} s (max {max(g):.4f}, "
+            f"sum {sum(g):.3f}), upload mean {statistics.mean(u):.3f} ms, search "
+            f"(kernel + merge) mean {statistics.mean(k):.3f} ms (sum {sum(k) / 1e3:.3f} s)")
+
+
+def phase_streamed(torch, store, cfg, pipe, hvs, q_pmz, q_charge, out):
+    from repro_torch.core.pipeline import OMSPipeline
+    db_bytes = db_nbytes(pipe.db)
+    launches, first = [], None
+    for slab_rows in STREAM_SLAB_ROWS:
+        t0 = time.perf_counter()
+        spipe = OMSPipeline.from_store(store, cfg, device=DEVICE, resident=False,
+                                       slab_rows=slab_rows)
+        t_open = time.perf_counter() - t0
+        plan = spipe.engine.plan
+        # Baseline before this pipeline's first search: the peaks below
+        # include the slab buffers the engine keeps between searches.
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        for be, kernel in STREAM_KERNELS.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res, t_first, counts = _counted(torch, lambda: spipe.search_encoded(
+                hvs, q_pmz, q_charge, backend=be))
+            peak = torch.cuda.max_memory_allocated() - base
+            st = spipe.engine.last_stats
+            require(_outputs_equal(res, out), f"streamed {be} at {plan.slab_rows} rows a "
+                    f"slab differs from the resident fused result")
+            require(counts[kernel] == st.n_scanned > 0, f"streamed {be}: {counts[kernel]} "
+                    f"{kernel} launches for {st.n_scanned} slabs")
+            stats = {}
+            t0 = time.perf_counter()
+            spipe.search_encoded(hvs, q_pmz, q_charge, backend=be, stats=stats)
+            torch.cuda.synchronize()
+            t_warm = time.perf_counter() - t0
+            launches.append((kernel, f"streamed {be}, {plan.slab_blocks} blocks a slab",
+                             counts[kernel]))
+            log(f"[stream] {be}, {plan.slab_rows} rows a slab ({plan.slab_blocks} blocks, "
+                f"{plan.n_slabs} slabs; layout in {t_open:.2f}s): == resident fused (6 "
+                f"arrays, both FDRs); slabs touched {st.n_scanned}/{st.n_slabs}, rows read "
+                f"{st.scanned_rows}, bytes {st.scanned_bytes}; first {t_first:.3f}s, warm "
+                f"{t_warm:.3f}s; {_slab_line(stats)}; peak device memory above the "
+                f"baseline {peak / 2**30:.3f} GiB (resident DB {db_bytes / 2**30:.3f} GiB); "
+                f"launches {json.dumps(counts)}")
+        if first is None:
+            first = spipe
+        else:
+            del spipe
+    return first, launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-15: the streamed dimension cascade; the narrow→open cascade
+# ---------------------------------------------------------------------------
+
+
+def phase_streamed_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out) -> dict:
+    P = STREAM_CASCADE_PREFIX
+    resident, t_res, _ = _counted(torch, lambda: pipe.search_encoded(
+        hvs, q_pmz, q_charge, prefix_words=P))
+    res, t, counts = _counted(torch, lambda: spipe.search_encoded(
+        hvs, q_pmz, q_charge, prefix_words=P))
+    require(_outputs_equal(res, resident) and _outputs_equal(res, out),
+            f"streamed cascade prefix_words={P} differs from the resident cascade")
+    require(counts["hamming_matrix"] > 0, "streamed cascade launched no hamming_matrix")
+    st = spipe.engine.last_stats
+    log(f"[stream] exact cascade prefix_words={P}, fused, {spipe.engine.plan.slab_rows} "
+        f"rows a slab: == resident cascade ({t_res:.2f}s) and phase 3's result (6 "
+        f"arrays, both FDRs) in {t:.2f}s; slabs "
+        f"{st.n_scanned}/{st.n_slabs}, rows read {st.scanned_rows}, bytes "
+        f"{st.scanned_bytes}; launches {json.dumps(counts)}")
+    return {"hamming_matrix": counts["hamming_matrix"]}
+
+
+def _timed_stages(torch, p, fn):
+    """Run ``fn`` with ``p``'s per-stage search timed (device-synced)."""
+    times = []
+    orig = p._run_search
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return r
+    p._run_search = timed
+    try:
+        return fn(), times
+    finally:
+        del p._run_search
+
+
+def _cascades_equal(a, b) -> bool:
+    same = all(equal(getattr(a.result, f), getattr(b.result, f)) for f in a.result._fields)
+    for fa, fb in ((a.open_fdr, b.open_fdr), (a.std_fdr, b.std_fdr)):
+        same = same and all(equal(getattr(fa, f), getattr(fb, f)) for f in fa._fields)
+    same = same and bool((a.identified_stage1 == b.identified_stage1).all())
+    for sa, sb in ((a.stage1, b.stage1), (a.stage2, b.stage2)):
+        same = same and (sa is None) == (sb is None)
+        if sa is not None and sb is not None:
+            same = same and bool((sa.query_idx == sb.query_idx).all()) and all(
+                equal(getattr(sa.result, f), getattr(sb.result, f)) for f in sa.result._fields)
+    return same
+
+
+def phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out) -> dict:
+    Q = hvs.shape[0]
+    outs, launches = {}, {}
+    pure = pipe.pure_open_scanned_rows(Q, q_pmz, q_charge)
+    for name, p in (("resident", pipe), ("streamed", spipe)):
+        (cout, t, counts), times = _timed_stages(torch, p, lambda: _counted(
+            torch, lambda: p.search_cascade_encoded(hvs, q_pmz, q_charge,
+                                                    narrow_tol_da=NARROW_TOL_DA)))
+        require(counts["fused_search"] > 0, f"{name} cascade launched no fused_search")
+        require(cout.stage1 is not None and cout.stage2 is not None
+                and cout.identified_stage1.any(),
+                f"{name} cascade: stage 1 identified nothing or everything")
+        outs[name] = cout
+        launches[f"narrow→open cascade, {name}"] = counts["fused_search"]
+        n_id = int(cout.identified_stage1.sum())
+        stream = ""
+        if cout.scanned_bytes_total is not None:
+            s1, s2 = cout.stage1.stream_stats, cout.stage2.stream_stats
+            stream = (f"; bytes streamed {cout.scanned_bytes_total}, slabs stage 1 "
+                      f"{s1.n_scanned}/{s1.n_slabs}, stage 2 {s2.n_scanned}/{s2.n_slabs}")
+        log(f"[narrow] {name} cascade at {NARROW_TOL_DA} Da, fused, {Q} queries in "
+            f"{t:.3f}s: stage 1 identified {n_id} ({times[0]:.3f}s), stage 2 on "
+            f"{Q - n_id} queries ({times[1]:.3f}s); open identifications "
+            f"{int(cout.open_fdr.n_accepted)}; scanned rows {cout.scanned_rows_total} "
+            f"against pure open {pure} ({cout.scanned_rows_total / pure:.4f}){stream}; "
+            f"launches {json.dumps(counts)}")
+        c0 = p.search_cascade_encoded(hvs, q_pmz, q_charge, run_stage1=False)
+        require(all(equal(getattr(c0.result, f), getattr(out.result, f))
+                    for f in out.result._fields)
+                and all(equal(getattr(c0.std_fdr, f), getattr(out.std_fdr, f))
+                        for f in out.std_fdr._fields),
+                f"{name} cascade with run_stage1=False differs from search_encoded")
+    require(_cascades_equal(outs["resident"], outs["streamed"]),
+            "streamed narrow→open cascade differs from the resident one")
+    log("[narrow] streamed cascade == resident cascade (merged result, both FDRs, "
+        "stage-1 identified, stage queries and results); run_stage1=False == "
+        "search_encoded on both paths")
+    return launches
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
@@ -1265,6 +1644,33 @@ def main() -> int:
     phase_cascade_margin(torch, pipe, hvs, q_pmz, q_charge)
     kernels += phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
                                kernels[1], bucket)
+    topk_ms = phase_topk(torch, pipe, hvs, q_pmz, q_charge)
+    own_path = {"hdencode": "main path", "fused_search": "main path",
+                "hamming_matrix": "backend kernel_vpu",
+                "hamming_mxu": "backend kernel_mxu",
+                "fused_search_mxu": "backend fused_mxu"}
+    by_path = {k["name"]: {own_path[k["name"]]: k["launches"]} for k in kernels}
+    try:
+        store, store_launches = phase_store(torch, ds, cfg, pipe, hvs, q_pmz,
+                                            q_charge, out)
+        by_path["hdencode"]["store ingest"] = store_launches["hdencode"]
+        by_path["fused_search"]["store-loaded search"] = store_launches["fused_search"]
+        spipe, stream_launches = phase_streamed(torch, store, cfg, pipe, hvs, q_pmz,
+                                                q_charge, out)
+        for kernel, path, n in stream_launches:
+            by_path[kernel][path] = n
+        by_path["hamming_matrix"][f"streamed cascade prefix_words={STREAM_CASCADE_PREFIX}"] = (
+            phase_streamed_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge,
+                                   out)["hamming_matrix"])
+        by_path["fused_search"].update(
+            phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out))
+        del spipe
+    finally:
+        shutil.rmtree(STORE_DIR, ignore_errors=True)
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+        if k["name"] in ("fused_search", "fused_search_mxu"):
+            k["topk_ms"] = {kk: v for kk, v in topk_ms.items() if kk.startswith(k["name"] + " ")}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"kernels": kernels}))

@@ -6,10 +6,13 @@ reference package: callers hand over ``np.asarray`` of its arrays.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from repro_torch.core.blocking import ReferenceDB, reference_db_from_arrays
+from repro_torch.core.cascade import CascadeOutput
 from repro_torch.core.encoding import Codebooks
 from repro_torch.core.fdr import FDRResult
 from repro_torch.core.search import SearchResult
@@ -49,3 +52,35 @@ def search_result_to_numpy(res: SearchResult) -> dict[str, np.ndarray]:
 
 def fdr_result_to_numpy(res: FDRResult) -> dict[str, np.ndarray]:
     return {f: getattr(res, f).cpu().numpy() for f in FDRResult._fields}
+
+
+def stream_stats_to_numpy(st) -> dict[str, int] | None:
+    """A serve StreamStats (or TotalStats) as plain ints by field name;
+    None stays None."""
+    if st is None:
+        return None
+    d = st._asdict() if hasattr(st, "_asdict") else dataclasses.asdict(st)
+    return {f: int(v) for f, v in d.items()}
+
+
+def cascade_output_to_numpy(out: CascadeOutput) -> dict:
+    """A CascadeOutput as nested dicts of numpy arrays and ints: the merged
+    result, both FDR results, ``identified_stage1``, the totals and, per
+    stage (None when it did not run), its query indices, result, FDR,
+    scanned rows and stream stats."""
+    def stage(st):
+        if st is None:
+            return None
+        return {"query_idx": np.asarray(st.query_idx),
+                "result": search_result_to_numpy(st.result),
+                "fdr": fdr_result_to_numpy(st.fdr),
+                "scanned_rows": int(st.scanned_rows),
+                "stream_stats": stream_stats_to_numpy(st.stream_stats)}
+
+    return {"result": search_result_to_numpy(out.result),
+            "open_fdr": fdr_result_to_numpy(out.open_fdr),
+            "std_fdr": fdr_result_to_numpy(out.std_fdr),
+            "identified_stage1": np.asarray(out.identified_stage1),
+            "scanned_rows_total": int(out.scanned_rows_total),
+            "scanned_bytes_total": out.scanned_bytes_total,
+            "stage1": stage(out.stage1), "stage2": stage(out.stage2)}

@@ -120,7 +120,11 @@ def preprocess_spectra(mz: torch.Tensor, intensity: torch.Tensor,
     bins = torch.clamp(((mz - _f32(mz_min)) * inv_bin).to(torch.int32), 0, n_bins - 1)
 
     # sqrt scaling + per-spectrum max-normalisation, then quantise to levels.
-    scaled = torch.sqrt(inten)
+    # The sqrt is taken in float64 and rounded once to float32, which is the
+    # correctly rounded float32 sqrt that XLA computes; torch's vectorised
+    # float32 sqrt on the CPU is not (about 1% of results 1 ulp off), and a
+    # level sitting on a rounding boundary would flip.
+    scaled = torch.sqrt(inten.to(torch.float64)).to(torch.float32)
     smax = torch.clamp_min(scaled.amax(dim=-1, keepdim=True), _f32(1e-9))
     levels = torch.clamp(
         (scaled / smax * float(n_levels - 1) + 0.5).to(torch.int32), 0, n_levels - 1)

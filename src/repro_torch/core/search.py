@@ -466,11 +466,13 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def plan_search(db: ReferenceDB, q_pmz, q_charge, *, open_tol_da: float,
+def plan_search(db, q_pmz, q_charge, *, open_tol_da: float,
                 q_block: int, safety_blocks: int = 2) -> int:
     """Pick the static ``k_blocks`` cap on the host: the most contiguous
     blocks any q_block run of (charge, pmz)-sorted queries can touch under
-    the open window, plus a guard."""
+    the open window, plus a guard. ``db`` is anything exposing the block
+    sidecars: a resident ReferenceDB (tensors) or a serve StoreLayout
+    (numpy)."""
     bmin, bmax = _host(db.block_min), _host(db.block_max)
     bch = _host(db.block_charge)
     qp, qc = _host(q_pmz), _host(q_charge)
@@ -508,8 +510,24 @@ def plan_search(db: ReferenceDB, q_pmz, q_charge, *, open_tol_da: float,
     return min(worst + safety_blocks, db.n_blocks)
 
 
-def scanned_rows(db: ReferenceDB, n_queries: int, params: SearchParams) -> int:
-    """Static comparison count of a search call."""
+def narrow_search_params(block_meta, q_pmz, q_charge, params: SearchParams, *,
+                         narrow_tol_da: float) -> SearchParams:
+    """Stage-1 (narrow-window) variant of ``params`` for the cascade: the
+    open window shrinks to ``narrow_tol_da`` and ``k_blocks`` is re-planned
+    for it with :func:`plan_search`. ``block_meta`` is a ReferenceDB or a
+    StoreLayout."""
+    if not 0.0 < narrow_tol_da <= params.open_tol_da:
+        raise ValueError(
+            f"narrow_tol_da must be in (0, open_tol_da={params.open_tol_da}]"
+            f", got {narrow_tol_da!r}")
+    k = plan_search(block_meta, _host(q_pmz), _host(q_charge),
+                    open_tol_da=narrow_tol_da, q_block=params.q_block)
+    return params._replace(open_tol_da=narrow_tol_da, k_blocks=k)
+
+
+def scanned_rows(db, n_queries: int, params: SearchParams) -> int:
+    """Static comparison count of a search call (``db``: a ReferenceDB or a
+    StoreLayout)."""
     nqb = -(-n_queries // params.q_block)
     k = db.n_blocks if params.exhaustive else params.k_blocks
     return nqb * k * db.max_r * params.q_block

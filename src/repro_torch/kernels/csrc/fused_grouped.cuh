@@ -68,6 +68,7 @@ constexpr int NSTAGE = 4;                     // ring stages per warp
 constexpr int STAGE_U32 = WARP_ROWS * STAGE_WORDS;         // 2 KB a stage
 constexpr size_t RING_BYTES = sizeof(uint32_t) * NWARPS * NSTAGE * STAGE_U32;
 constexpr size_t SMEM_BUDGET = 220 * 1024;    // dynamic shared memory cap
+constexpr int MAX_GRID_Y = 65535;             // groups per launch (gridDim.y)
 
 // Words per staged query row: W rounded up to a 16-word MMA step.
 __host__ __device__ __forceinline__ int padded_words(int W) { return (W + 15) / 16 * 16; }
@@ -434,20 +435,35 @@ int launch_partial(const void* q, const void* q_pmz, const void* q_charge, const
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(n_splits, (n_tiles + G - 1) / G);
-  kern<<<grid, THREADS, smem, st>>>(
-      static_cast<const uint32_t*>(q), static_cast<const float*>(q_pmz),
-      static_cast<const int32_t*>(q_charge), static_cast<const uint32_t*>(r),
-      static_cast<const float*>(r_pmz), static_cast<const int32_t*>(r_charge),
-      static_cast<const int32_t*>(tile_start), n_tiles, n_rows, W, dim, k, rk, std_scale,
-      open_tol, pad_pmz, static_cast<winner_t*>(partial));
-  return static_cast<int>(cudaGetLastError());
+  // blockIdx.y is the group: batches of more than MAX_GRID_Y groups run as
+  // several launches over consecutive tiles (the kernel sees its batch's
+  // first tile as tile 0).
+  const int n_groups = (n_tiles + G - 1) / G;
+  for (int g0 = 0; g0 < n_groups; g0 += MAX_GRID_Y) {
+    const int t0 = g0 * G;
+    const int ng = n_groups - g0 < MAX_GRID_Y ? n_groups - g0 : MAX_GRID_Y;
+    const dim3 grid(n_splits, ng);
+    kern<<<grid, THREADS, smem, st>>>(
+        static_cast<const uint32_t*>(q) + (size_t)t0 * QT * W,
+        static_cast<const float*>(q_pmz) + (size_t)t0 * QT,
+        static_cast<const int32_t*>(q_charge) + (size_t)t0 * QT,
+        static_cast<const uint32_t*>(r), static_cast<const float*>(r_pmz),
+        static_cast<const int32_t*>(r_charge), static_cast<const int32_t*>(tile_start) + t0,
+        n_tiles - t0 < ng * G ? n_tiles - t0 : ng * G, n_rows, W, dim, k, rk, std_scale,
+        open_tol, pad_pmz,
+        static_cast<winner_t*>(partial) + (size_t)t0 * n_splits * NLISTS * k);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 // Launch the grouped partial kernel of `Route` and the split merge on
 // `stream`. G = GROUP tiles per CTA where the CTA's shared memory (queries,
-// lists, row rings, route scratch) fits, else 1; 16-byte loads where
-// W % 4 == 0 and q, r are 16-byte aligned. Returns a cudaError_t.
+// lists, row rings, route scratch) fits, else 1, and cudaErrorInvalidValue
+// where not even one tile's fits (the wrapper states that bound);
+// 16-byte loads where W % 4 == 0 and q, r are 16-byte aligned. Returns a
+// cudaError_t.
 template <class Route>
 int launch_grouped(const void* q, const void* q_pmz, const void* q_charge, const void* r,
                    const void* r_pmz, const void* r_charge, const void* tile_start,
@@ -470,13 +486,11 @@ int launch_grouped(const void* q, const void* q_pmz, const void* q_charge, const
                                    partial, n_tiles, n_rows, W, dim, k, rk, n_splits,  \
                                    std_scale, open_tol, pad_pmz, smem_for(G), st)
   if (smem_for(GROUP) <= SMEM_BUDGET) {
-    if ((n_tiles + GROUP - 1) / GROUP > 65535) return static_cast<int>(cudaErrorInvalidValue);
     if (vec4)
       REPRO_LAUNCH_GROUPED(GROUP, 4);
     else
       REPRO_LAUNCH_GROUPED(GROUP, 1);
   } else if (smem_for(1) <= SMEM_BUDGET) {
-    if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
     if (vec4)
       REPRO_LAUNCH_GROUPED(1, 4);
     else

@@ -9,7 +9,11 @@
 // A CTA keeps one descending list of k keys per (query, window) in shared
 // memory, which all its warps insert into with insert_atomic. At the end of
 // the CTA each list is its partial result for its split, and
-// fused_search_merge merges the splits and decodes the keys.
+// fused_search_merge merges the splits and decodes the keys. The shared
+// lists take any k (their length is a launch argument); the merge keeps
+// its list in registers and local memory, so it is instantiated for
+// KCAP = 16, 32 and 64 and launch_merge picks the least KCAP >= k: KMAX =
+// 64 is the launch limit, and k <= 16 runs the same merge as before.
 #pragma once
 
 #include <cstdint>
@@ -21,7 +25,7 @@ constexpr int QT = 16;            // queries per tile
 constexpr int NLISTS = 2 * QT;    // (query, window) winner lists per tile
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int KMAX = 16;
+constexpr int KMAX = 64;          // the largest k a launch takes
 constexpr unsigned FULL = 0xffffffffu;
 
 typedef unsigned long long winner_t;
@@ -58,7 +62,8 @@ __device__ __forceinline__ int list_threshold(const winner_t* list, int k) {
 }
 
 // Merge the per-split partial winners of every (tile, list) and decode the
-// keys into sims and global rows (-1/-1 for empty ranks).
+// keys into sims and global rows (-1/-1 for empty ranks); k <= KCAP.
+template <int KCAP>
 __global__ void fused_search_merge(const winner_t* __restrict__ partial,
                                    int n_tiles, int n_splits, int k,
                                    int32_t* std_sim, int32_t* std_row,
@@ -67,7 +72,7 @@ __global__ void fused_search_merge(const winner_t* __restrict__ partial,
   if (g >= n_tiles * NLISTS) return;
   const int tile = g / NLISTS;
   const int l = g % NLISTS;
-  winner_t best[KMAX];
+  winner_t best[KCAP];
   for (int i = 0; i < k; ++i) best[i] = 0ull;
   for (int s = 0; s < n_splits; ++s) {
     const winner_t* src = partial + (((size_t)tile * n_splits + s) * NLISTS + l) * k;
@@ -87,16 +92,31 @@ __global__ void fused_search_merge(const winner_t* __restrict__ partial,
   }
 }
 
-// Enqueue fused_search_merge on `stream`; returns cudaGetLastError().
-inline int launch_merge(const void* partial, int n_tiles, int n_splits, int k,
-                        void* std_sim, void* std_row, void* open_sim,
-                        void* open_row, cudaStream_t stream) {
+template <int KCAP>
+void launch_merge_k(const void* partial, int n_tiles, int n_splits, int k, void* std_sim,
+                    void* std_row, void* open_sim, void* open_row, cudaStream_t stream) {
   const int merge_threads = 256;
-  const int merge_blocks = (n_tiles * NLISTS + merge_threads - 1) / merge_threads;
-  fused_search_merge<<<merge_blocks, merge_threads, 0, stream>>>(
+  const long long merge_blocks = ((long long)n_tiles * NLISTS + merge_threads - 1) / merge_threads;
+  fused_search_merge<KCAP><<<(unsigned)merge_blocks, merge_threads, 0, stream>>>(
       static_cast<const winner_t*>(partial), n_tiles, n_splits, k,
       static_cast<int32_t*>(std_sim), static_cast<int32_t*>(std_row),
       static_cast<int32_t*>(open_sim), static_cast<int32_t*>(open_row));
+}
+
+// Enqueue fused_search_merge (the least KCAP >= k) on `stream`; returns
+// cudaGetLastError().
+inline int launch_merge(const void* partial, int n_tiles, int n_splits, int k,
+                        void* std_sim, void* std_row, void* open_sim,
+                        void* open_row, cudaStream_t stream) {
+  if (k <= 16)
+    launch_merge_k<16>(partial, n_tiles, n_splits, k, std_sim, std_row, open_sim, open_row,
+                       stream);
+  else if (k <= 32)
+    launch_merge_k<32>(partial, n_tiles, n_splits, k, std_sim, std_row, open_sim, open_row,
+                       stream);
+  else
+    launch_merge_k<64>(partial, n_tiles, n_splits, k, std_sim, std_row, open_sim, open_row,
+                       stream);
   return static_cast<int>(cudaGetLastError());
 }
 

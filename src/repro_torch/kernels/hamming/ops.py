@@ -19,7 +19,17 @@ from repro_torch.kernels.hamming import ref
 
 QT = 16            # queries per kernel tile (csrc: QT)
 GROUP = 8          # query tiles per CTA of the fused kernels (csrc: GROUP)
-K_MAX = 16         # largest top_k the kernel keeps (csrc: KMAX)
+K_MAX = 64         # largest top_k the fused kernels keep (csrc: KMAX)
+# Shared memory of one fused CTA (csrc/fused_grouped.cuh: SMEM_BUDGET,
+# RING_BYTES): G tiles' queries padded to 16-word steps, 2 * 16 lists of
+# k 8-byte keys per tile, the row rings, and the route's scratch.
+FUSED_SMEM_BUDGET = 220 * 1024
+FUSED_RING_BYTES = 8 * 4 * 32 * 16 * 4
+# hamming_matrix stages 16 queries' words (padded to 16) in shared memory,
+# at most 232,448 bytes: wider rows run as word chunks whose tiles add up.
+TILE_W_CHUNK = 3584
+# Query tiles of one tile-kernel launch (gridDim.y); more run in batches.
+TILE_Q_CHUNK = 65535 * QT
 # Fused kernels: waves of CTAs to aim for (their register use fits one CTA
 # per SM), so that groups of unequal row spans even out.
 FUSED_WAVES = 4
@@ -59,21 +69,53 @@ def _pad_blocks(x, nqb, q_block, per_block, value):
     return torch.cat([xb, pad], dim=1).reshape(nqb * per_block, *x.shape[1:])
 
 
+def fused_smem_bytes(G: int, W: int, k: int, scratch_per_tile: int = 0) -> int:
+    """Dynamic shared memory of one fused CTA of G query tiles (the
+    kernel's smem_for); ``scratch_per_tile`` is the route's (fused_mxu:
+    4,096 bytes a tile)."""
+    wp = -(-W // 16) * 16
+    return 4 * G * QT * wp + 8 * G * 2 * QT * k + FUSED_RING_BYTES + scratch_per_tile * G
+
+
 def hamming_matrix(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """All-pairs Hamming: q (Q, W) x r (R, W) int32 words -> (Q, R) int32."""
+    """All-pairs Hamming: q (Q, W) x r (R, W) int32 words -> (Q, R) int32.
+    Rows wider than TILE_W_CHUNK words run as word chunks (one launch each,
+    tiles summed); more than TILE_Q_CHUNK queries as query batches."""
     if q.device.type == "cpu":
         return ref.hamming_matrix(q, r)
     dev = check_pair("hamming_matrix", q, r)
+    W = q.shape[1]
+    if W > TILE_W_CHUNK:
+        out = None
+        for w0 in range(0, W, TILE_W_CHUNK):
+            part = hamming_matrix(q[:, w0:w0 + TILE_W_CHUNK].contiguous(),
+                                  r[:, w0:w0 + TILE_W_CHUNK].contiguous())
+            out = part if out is None else out.add_(part)
+        return out
+    return launch_tile("hamming_matrix", matrix_launches, q, r)
+
+
+def launch_tile(kernel: str, counter: _build.LaunchCounter, q, r, *extra):
+    """Launch ``<kernel>_launch(q, r, out, Q, R, W, *extra, stream)`` over
+    batches of at most TILE_Q_CHUNK queries; ``counter`` counts each."""
     Q, W = q.shape
     R = r.shape[0]
+    dev = q.device
     out = torch.empty((Q, R), dtype=torch.int32, device=dev)
     if Q == 0 or R == 0:
         return out
-    rc = _build.library().hamming_matrix_launch(
-        _build.ptr(q), _build.ptr(r), _build.ptr(out), ctypes.c_int(Q),
-        ctypes.c_int(R), ctypes.c_int(W), _build.stream_ptr(dev))
-    _build.check(rc, "hamming_matrix_launch")
-    matrix_launches.count += 1
+    launcher = getattr(_build.library(), f"{kernel}_launch")
+    rest = [ctypes.c_int(R), ctypes.c_int(W), *map(ctypes.c_int, extra),
+            _build.stream_ptr(dev)]
+    # One launch on the whole tensors unless the batch must be cut.
+    parts = ([(q, out)] if Q <= TILE_Q_CHUNK else
+             [(q[i:i + TILE_Q_CHUNK], out[i:i + TILE_Q_CHUNK])
+              for i in range(0, Q, TILE_Q_CHUNK)])
+    for qs, os_ in parts:
+        rc = launcher(_build.ptr(qs), _build.ptr(r), _build.ptr(os_),
+                      ctypes.c_int(qs.shape[0]), *rest)
+        _build.check(rc, f"{kernel}_launch")
+        counter.count += 1
     return out
 
 
@@ -113,9 +155,12 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
 
 def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
                  q_charge, r_hvs, r_pmz, r_charge, start_rows, *, q_block: int,
-                 rk: int, dim: int, k: int, ppm_tol: float, open_tol_da: float):
+                 rk: int, dim: int, k: int, ppm_tol: float, open_tol_da: float,
+                 scratch_per_tile: int = 0):
     """Validate, pad and launch ``<kernel>_launch`` — any launcher with the
-    fused_search C signature — on CUDA tensors; ``counter`` counts it."""
+    fused_search C signature — on CUDA tensors; ``counter`` counts it.
+    ``scratch_per_tile`` is the kernel's route scratch (shared memory a
+    query tile) for the shared-memory bound."""
     dev = q_hvs.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {dev}")
@@ -142,6 +187,11 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
     if not 1 <= k <= K_MAX:
         raise ValueError(f"{kernel}: the CUDA kernel keeps 1..{K_MAX} "
                          f"winners, got top_k={k}")
+    smem = fused_smem_bytes(1, W, k, scratch_per_tile)
+    if smem > FUSED_SMEM_BUDGET:
+        raise ValueError(f"{kernel}: W={W} words at top_k={k} need {smem} bytes "
+                         f"of shared memory per query tile, over the kernel's "
+                         f"{FUSED_SMEM_BUDGET}")
     if not 1 <= rk <= N:
         raise ValueError(f"{kernel}: rk={rk} must be in [1, {N}]")
     nqb = Qp // q_block

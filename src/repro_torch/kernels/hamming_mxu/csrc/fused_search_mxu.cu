@@ -33,8 +33,6 @@
 
 namespace {
 
-constexpr int MXU_W_MAX = 256;     // the launch contract of the wrapper
-
 struct Pm1Route {
   static constexpr bool kNorms = false;
   static constexpr int SW = 8;     // words per slice of expanded A fragments
@@ -113,8 +111,9 @@ struct Pm1Route {
 }  // namespace
 
 // The arguments of fused_search_launch (hamming/csrc/fused_search.cu);
-// dim must be 32 * W and W <= 256. Launches both kernels on `stream`;
-// returns cudaGetLastError().
+// dim must be 32 * W, and W and k must leave one tile's queries, lists,
+// rings and A slice within the shared-memory budget (launch_grouped).
+// Launches both kernels on `stream`; returns cudaGetLastError().
 extern "C" int fused_search_mxu_launch(
     const void* q, const void* q_pmz, const void* q_charge, const void* r,
     const void* r_pmz, const void* r_charge, const void* tile_start,
@@ -122,7 +121,7 @@ extern "C" int fused_search_mxu_launch(
     void* open_row, int n_tiles, int n_rows, int W, int dim, int k, int rk,
     int n_splits, float std_scale, float open_tol, float pad_pmz,
     void* stream) {
-  if (W > MXU_W_MAX || dim != 32 * W) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim != 32 * W) return static_cast<int>(cudaErrorInvalidValue);
   return launch_grouped<Pm1Route>(q, q_pmz, q_charge, r, r_pmz, r_charge, tile_start,
                                   partial, std_sim, std_row, open_sim, open_row, n_tiles,
                                   n_rows, W, dim, k, rk, n_splits, std_scale, open_tol,

@@ -9,15 +9,16 @@ there is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hamming import ops as hops
 from repro_torch.kernels.hamming_mxu import ref
 
-W_MAX_FUSED = 256   # the fused kernel's limit (csrc: MXU_W_MAX)
+# fused_search_mxu's route scratch: one slice of expanded A fragments a
+# query tile (csrc: Pm1Route::scratch_bytes), counted in its shared-memory
+# bound.
+FUSED_SCRATCH_PER_TILE = 8 * 32 * 16
 
 launches = _build.LaunchCounter()           # fused_search_mxu
 matrix_launches = _build.LaunchCounter()    # hamming_mxu
@@ -35,19 +36,8 @@ def hamming_matrix(q: torch.Tensor, r: torch.Tensor, dim: int) -> torch.Tensor:
     _check_dim(dim, q.shape[1])
     if q.device.type == "cpu":
         return ref.hamming_matrix(q, r, dim)
-    dev = hops.check_pair("hamming_mxu", q, r)
-    Q, W = q.shape
-    R = r.shape[0]
-    out = torch.empty((Q, R), dtype=torch.int32, device=dev)
-    if Q == 0 or R == 0:
-        return out
-    rc = _build.library().hamming_mxu_launch(
-        _build.ptr(q), _build.ptr(r), _build.ptr(out), ctypes.c_int(Q),
-        ctypes.c_int(R), ctypes.c_int(W), ctypes.c_int(dim),
-        _build.stream_ptr(dev))
-    _build.check(rc, "hamming_mxu_launch")
-    matrix_launches.count += 1
-    return out
+    hops.check_pair("hamming_mxu", q, r)
+    return hops.launch_tile("hamming_mxu", matrix_launches, q, r, dim)
 
 
 def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
@@ -63,7 +53,5 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
     args = (q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows)
     if q_hvs.device.type == "cpu":
         return ref.fused_search(*args, **kw)
-    if W > W_MAX_FUSED:
-        raise ValueError(f"fused_search_mxu: the CUDA kernel takes at most "
-                         f"{W_MAX_FUSED} words, got {W}")
-    return hops.launch_fused("fused_search_mxu", launches, *args, **kw)
+    return hops.launch_fused("fused_search_mxu", launches, *args, **kw,
+                             scratch_per_tile=FUSED_SCRATCH_PER_TILE)

@@ -69,3 +69,44 @@ def test_wrappers_refuse_other_devices(kernel):
             fn(q, pmz, ch, q, pmz, ch, start, q_block=16, rk=16, dim=128, k=1)
     assert before == (hops.launches.count, hops.matrix_launches.count,
                       mops.launches.count, mops.matrix_launches.count)
+
+
+# (kernel, top_k, widest W in words) of the fused kernels' shared-memory
+# bound, as README states them: 64 * ceil16(W) + 256 * k + 65,536 (+ 4,096
+# for fused_search_mxu's A slice) <= 225,280 bytes at one tile per CTA.
+FUSED_W_LIMITS = [("fused_search", 1, 2480), ("fused_search", 16, 2432),
+                  ("fused_search", 64, 2240), ("fused_search_mxu", 1, 2416),
+                  ("fused_search_mxu", 16, 2368), ("fused_search_mxu", 64, 2176)]
+
+
+@pytest.mark.parametrize("kernel,k,w_max", FUSED_W_LIMITS)
+def test_fused_shared_memory_limits(kernel, k, w_max):
+    scratch = mops.FUSED_SCRATCH_PER_TILE if kernel == "fused_search_mxu" else 0
+    assert hops.fused_smem_bytes(1, w_max, k, scratch) <= hops.FUSED_SMEM_BUDGET
+    assert hops.fused_smem_bytes(1, w_max + 1, k, scratch) > hops.FUSED_SMEM_BUDGET
+    assert hops.K_MAX == 64
+
+
+@pytest.mark.parametrize("scratch", [0, 8 * 32 * 16])
+def test_main_path_keeps_eight_tiles_per_cta_up_to_k16(scratch):
+    """At the main path's 128 words the grouped launch keeps G = 8 tiles per
+    CTA for every k <= 16, as before the top_k cap was lifted."""
+    for k in (1, 4, 16):
+        assert hops.fused_smem_bytes(hops.GROUP, 128, k, scratch) <= hops.FUSED_SMEM_BUDGET
+    assert hops.fused_smem_bytes(hops.GROUP, 128, 64, scratch) > hops.FUSED_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("k", [17, 32, 64])
+def test_fused_wrappers_take_top_k_above_16_on_the_cpu(k):
+    g = torch.Generator().manual_seed(k)
+    r = torch.randint(-2 ** 31, 2 ** 31 - 1, (96, 4), generator=g, dtype=torch.int32)
+    q = r[:16].clone()
+    pmz = torch.linspace(500.0, 501.0, 96)
+    ch = torch.full((96,), 2, dtype=torch.int32)
+    start = torch.zeros((1,), dtype=torch.int32)
+    args = (q, pmz[:16], ch[:16], r, pmz, ch, start)
+    kw = dict(q_block=16, rk=96, dim=128, k=k)
+    a, b = hops.fused_search(*args, **kw), mops.fused_search(*args, **kw)
+    for x, y in zip(a, b):
+        assert x.shape == (16, k) and torch.equal(x, y)
+    assert (a[3] >= 0).sum() == 16 * k        # every rank filled (96 >= k rows)

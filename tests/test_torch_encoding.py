@@ -54,10 +54,27 @@ def _boundary_raw():
     return mz, inten, pmz, charge
 
 
+def _level_edge_raw(n_levels, B=512, P=64):
+    """Many spectra whose peaks sit on level rounding edges: intensity
+    ratios ((m - 0.5) / (n_levels - 1))^2 to a random base peak, so each
+    level decision rests on the last bit of a correctly rounded sqrt (and
+    the batch is large enough for torch's vectorised CPU kernels)."""
+    rng = np.random.default_rng(7)
+    mz = rng.uniform(PP.mz_min, PP.mz_max, (B, P)).astype(np.float32)
+    base = rng.uniform(1.0, 1000.0, (B, 1)).astype(np.float32)
+    m = rng.integers(1, n_levels, (B, P))
+    inten = (base * ((m - 0.5) / (n_levels - 1)) ** 2).astype(np.float32)
+    inten[:, 0] = base[:, 0]
+    pmz = rng.uniform(400.0, 1800.0, (B,)).astype(np.float32)
+    charge = rng.integers(2, 4, (B,)).astype(np.int32)
+    return mz, inten, pmz, charge
+
+
 @pytest.mark.parametrize("n_levels", [8, 32])
-@pytest.mark.parametrize("boundary", [False, True])
+@pytest.mark.parametrize("boundary", [False, True, "level_edges"])
 def test_preprocess_matches_reference(boundary, n_levels):
-    raw = _boundary_raw() if boundary else _raw(np.random.default_rng(1), 17, 29)
+    raw = (_level_edge_raw(n_levels) if boundary == "level_edges" else
+           _boundary_raw() if boundary else _raw(np.random.default_rng(1), 17, 29))
     kw = dict(bin_size=0.05, mz_min=200.0, mz_max=2000.0, n_levels=n_levels)
     want = ref_encoding.preprocess_spectra(*(jnp.asarray(x) for x in raw), **kw)
     got = encoding.preprocess_spectra(*(torch.from_numpy(x) for x in raw), **kw)

@@ -57,6 +57,42 @@ def test_every_module_imports_without_jax():
     assert int(out.stdout.strip()) >= len(mods) > 15
 
 
+def test_store_serve_and_cascade_modules_are_covered():
+    """The static scan and the jax-free import reach the store, the serve
+    engine and the cascade."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    assert {"store/format.py", "store/library_store.py", "serve/slabs.py",
+            "serve/engine.py", "core/cascade.py"} <= files
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch.store.library_store", "repro_torch.serve.engine",
+            "repro_torch.serve.slabs", "repro_torch.core.cascade"} <= mods
+
+
+def test_store_entry_points_without_device_raise_when_cuda_is_missing(
+        monkeypatch, tmp_path):
+    from repro_torch.serve import StoreLayout, StreamingEngine
+    from repro_torch.core.blocking import LibraryRun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset(LibraryConfig(n_refs=8, n_queries=2))
+    cfg = pipeline.OMSConfig(dim=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.OMSPipeline.ingest(cfg, ds.refs, str(tmp_path / "s"))
+    store = pipeline.OMSPipeline.ingest(cfg, ds.refs, str(tmp_path / "s"),
+                                        device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.OMSPipeline.from_store(store)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.OMSPipeline.from_store(store, resident=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        store.load_reference_db(max_r=64)
+    run = LibraryRun(np.zeros((2, 2), np.int32), np.array([1.0, 2.0], np.float32),
+                     np.full(2, 2, np.int32), np.zeros(2, bool),
+                     np.arange(2, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingEngine(StoreLayout.from_runs([run], max_r=4), max_r=4)
+
+
 def test_pipeline_without_device_raises_when_cuda_is_missing(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ds = make_dataset(LibraryConfig(n_refs=8, n_queries=2))
