@@ -91,6 +91,27 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      stage queries and results); with run_stage1 False equal to
      search_encoded; identified count, each stage's time, scanned rows
      against pure_open_scanned_rows, and bytes streamed.
+ 16. the launcher, ``python -m repro_torch.launch.oms`` as subprocesses
+     from the repository root (free disk printed first): ``build`` of the
+     Table I library, byte-identical to phase 12's store (then deleted);
+     ``search`` (fused, pallas), its recall and identification lines equal
+     to phase 3's, and ``search --cascade``, stage 1 identifying as many as
+     the in-process cascade; ``queries`` of the 16,000 requests; ``serve
+     --resident`` (no cache, traced) on all of them, every response equal
+     to phase 3's row; streamed ``serve`` at 2^18 rows a slab on the first
+     1,024 at 256 a batch (a scan reads the whole store), byte-identical to
+     the resident lines; ``serve`` with the result cache on the first
+     1,024 twice, the second copy all hits and the lines unchanged; ``serve
+     --cascade`` on all, a sample of 256 responses equal to single-query
+     in-process cascades; ``trace-report --json`` on both traces, span
+     counts equal to the micro-batches and slabs served. Each serve mode
+     runs once more in process (``oms.main``; the 16,000-request modes on
+     the first 1,024) for the launch counts, under ``torch.profiler``
+     (device activity only) for the device's busy share and the kernels'
+     device time per micro-batch, and must answer byte for byte as the
+     subprocess did; one resident micro-batch's ``hdencode`` and
+     ``fused_search`` calls are replayed at their serve shapes and timed
+     with CUDA events.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
@@ -199,6 +220,38 @@ STREAM_KERNELS = {"fused": "fused_search", "fused_mxu": "fused_search_mxu"}
 STREAM_CASCADE_PREFIX = 8
 NARROW_TOL_DA = 1.0
 GRID_Y_MAX = 65535       # CUDA's grid y limit: groups of one fused launch
+
+# Phase 16: the launcher, ``python -m repro_torch.launch.oms``, as
+# subprocesses from the repository root.
+CLI_STORE_DIR = HERE / "build" / "smoke_store_cli"
+REQUESTS_FILE = HERE / "build" / "smoke_requests.jsonl"
+SERVE_TRACE = HERE / "build" / "smoke_serve.trace.json"
+STREAM_TRACE = HERE / "build" / "smoke_stream.trace.json"
+# A streamed scan reads the whole 1.19 GB store (~1.2-1.5 s), so streamed
+# serve takes the first 1,024 requests at 256 a micro-batch; the cache run
+# sends the first 1,024 twice; the cascade responses are held against
+# single-query in-process cascades on a sample of 256 ids.
+STREAM_SERVE_REQUESTS = 1024
+STREAM_SERVE_BATCH = 256
+STREAM_SERVE_SLAB_ROWS = 1 << 18
+CACHE_REQUESTS = 1024
+# The in-process serve runs (launch counts, device profile) of the modes
+# that serve all 16,000 requests take the first 1,024.
+IN_PROCESS_REQUESTS = 1024
+SERVE_PROFILE = HERE / "build" / "smoke_serve_profile.json"
+# Device activity in a torch.profiler (Kineto) trace, and the serve path's
+# kernels by the names of their __global__ functions.
+DEVICE_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SERVE_KERNELS = {"hdencode": ("hdencode_kernel",),
+                 "fused_search": ("fused_grouped_partial", "fused_search_merge")}
+CASCADE_SAMPLE = 256
+CLI_TIMEOUT_S = 300
+# Hot reload: streamed serve of 256 requests, then `build --append` of
+# 65,536 more library spectra (seed 1), then 256 requests drawn from them.
+HOT_RELOAD_REQUESTS = 256
+HOT_RELOAD_REFS = 1 << 16
+HOT_RELOAD_POLL_S = 0.1
+RELOAD_TRACE = HERE / "build" / "smoke_reload.trace.json"
 
 
 def log(msg: str) -> None:
@@ -1605,6 +1658,497 @@ def phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out) -> dict:
         "search_encoded on both paths")
     return launches
 
+# ---------------------------------------------------------------------------
+# Phase 16: the launcher on the card
+# ---------------------------------------------------------------------------
+
+
+def oms_cli(args, what: str, *, stdin=None, stdout=None):
+    """Run ``python -m repro_torch.launch.oms *args`` from the repository
+    root (stdin / stdout from / to the given paths, else none / captured);
+    fails unless it exits 0. Returns (stdout text, stderr text, seconds)."""
+    import os
+    cmd = [sys.executable, "-m", "repro_torch.launch.oms", *map(str, args)]
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
+    fin = open(stdin) if stdin else None
+    fout = open(stdout, "w") if stdout else None
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, cwd=HERE, env=env,
+                             stdin=fin or subprocess.DEVNULL,
+                             stdout=fout or subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: `oms {' '.join(cmd[3:])}` ran past {CLI_TIMEOUT_S} s")
+    finally:
+        for f in (fin, fout):
+            if f is not None:
+                f.close()
+    dt = time.perf_counter() - t0
+    require(res.returncode == 0, f"{what}: `oms {' '.join(cmd[3:])}` exited "
+            f"{res.returncode}: {res.stderr[-3000:]}")
+    return res.stdout or "", res.stderr, dt
+
+
+class FirstRead:
+    """The lines of ``lines``; ``start()`` runs just before the first is
+    read, which ``serve`` does once its store is loaded."""
+
+    def __init__(self, lines, start):
+        self.lines, self.start = lines, start
+
+    def __iter__(self):
+        self.start()
+        yield from self.lines
+
+
+def serve_profiler(torch):
+    """A torch.profiler that records device activity only (CUPTI); the
+    host work of the serve threads is not instrumented."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_profile(prof, wall_s: float) -> dict:
+    """The device's busy time (the union of kernel, copy and set
+    intervals) over ``wall_s``, and each serve kernel's launches and
+    device milliseconds, from ``prof``'s trace."""
+    prof.export_chrome_trace(str(SERVE_PROFILE))
+    try:
+        events = [e for e in json.loads(SERVE_PROFILE.read_text())["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_EVENT_CATS]
+    finally:
+        SERVE_PROFILE.unlink(missing_ok=True)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    kernels = {k: [0, 0.0] for k in SERVE_KERNELS}
+    for e in events:
+        for k, names in SERVE_KERNELS.items():
+            if e["cat"] == "kernel" and any(n in e["name"] for n in names):
+                kernels[k][0] += 1
+                kernels[k][1] += e["dur"] / 1e3
+    return {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+            "copy_ms": sum(e["dur"] for e in events if e["cat"] == "gpu_memcpy") / 1e3,
+            "n_events": len(events), "kernels": kernels}
+
+
+def oms_in_process(args, stdin, *, profile=False):
+    """``repro_torch.launch.oms.main(args)`` in this process reading the
+    lines of ``stdin`` (a file or any iterable), stdout and stderr
+    captured, every kernel's launch count set to 0 just before and read
+    just after. With ``profile``, the device's activity is recorded from
+    the first request read to the return (``device_profile``). Returns
+    (stdout, stderr, counts, seconds, profile or None)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels.hdencode import ops as hd_ops
+    from repro_torch.launch import oms
+    counters = {**_counters(), "hdencode": hd_ops.launches}
+    out, err = io.StringIO(), io.StringIO()
+    prof, started = (serve_profiler(torch) if profile else None), []
+
+    def start():
+        torch.cuda.synchronize()
+        prof.start()
+        started.append(time.perf_counter())
+    old = sys.stdin
+    sys.stdin = FirstRead(stdin, start) if profile else stdin
+    try:
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            oms.main([str(a) for a in args])
+        t = time.perf_counter() - t0
+        counts = {n: c.count for n, c in counters.items()}
+        if started:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - started[0]
+    finally:
+        sys.stdin = old
+        if started:
+            prof.stop()
+    return (out.getvalue(), err.getvalue(), counts, t,
+            device_profile(prof, wall) if started else None)
+
+
+_SERVE_STATS = (
+    r"answered (?P<answered>\d+) queries in (?P<s>[\d.]+)s \((?P<qps>\d+) q/s, "
+    r"(?P<batches>\d+) micro-batches, (?P<qpb>[\d.]+) q/batch .*?wait p50/p99 "
+    r"(?P<wait50>[\d.]+)/(?P<wait99>[\d.]+)ms, e2e p50/p99 (?P<e2e50>[\d.]+)/"
+    r"(?P<e2e99>[\d.]+)ms")
+
+
+def serve_stats(err: str) -> dict:
+    """The numbers of ``serve``'s closing stderr line."""
+    import re
+    m = re.search(_SERVE_STATS, err)
+    require(m is not None, f"serve printed no summary line: {err[-2000:]}")
+    st = {k: float(v) for k, v in m.groupdict().items()}
+    slabs = re.search(r"scans over (\d+) slabs", err)
+    st["slabs"] = int(slabs.group(1)) if slabs else 0
+    cache = re.search(r"cache (\d+)/(\d+) hits", err)
+    st["cache"] = (int(cache.group(1)), int(cache.group(2))) if cache else None
+    return st
+
+
+class GrowingStdin:
+    """Request lines for ``serve --hot-reload``: ``first``, then, once all of
+    them have been searched (their ``serve.batch`` spans closed), ``grow()``
+    and a wait of 10 watcher polls, then ``rest``."""
+
+    def __init__(self, first, rest, grow):
+        self.first, self.rest, self.grow = first, rest, grow
+
+    def __iter__(self):
+        from repro_torch.obs import trace
+        yield from self.first
+        deadline = time.monotonic() + CLI_TIMEOUT_S
+        while sum(e.attrs["n"] for e in trace.current().events()
+                  if e.name == "serve.batch") < len(self.first):
+            require(time.monotonic() < deadline, "hot reload: the first "
+                    "requests were never served")
+            time.sleep(0.01)
+        self.grow()
+        time.sleep(10 * HOT_RELOAD_POLL_S)
+        yield from self.rest
+
+
+def payloads_of(result) -> list[dict]:
+    """Every query's response payload as ``serve`` writes it."""
+    r = {f: getattr(result, f).cpu().numpy()
+         for f in ("std_idx", "std_sim", "open_idx", "open_sim")}
+    return [{"std": {"idx": r["std_idx"][i].tolist(), "sim": r["std_sim"][i].tolist()},
+             "open": {"idx": r["open_idx"][i].tolist(), "sim": r["open_sim"][i].tolist()}}
+            for i in range(r["std_idx"].shape[0])]
+
+
+def same_bytes(a: Path, b: Path) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(1 << 24), fb.read(1 << 24)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def result_lines(out, ds, cfg, Q: int) -> list[str]:
+    """The recall and identification lines the launcher prints for ``out``
+    (the same format strings)."""
+    import numpy as np
+    src, mod = ds.query_source, ds.query_modified
+    o = out.result.open_idx.cpu().numpy()[:, 0] == src
+    s = out.result.std_idx.cpu().numpy()[:, 0] == src
+    return [f"[oms] open-search recall@1:     {np.mean(o):.3f} "
+            f"(modified queries: {np.mean(o[mod]):.3f})",
+            f"[oms] standard-search recall@1: {np.mean(s):.3f} "
+            f"(modified queries: {np.mean(s[mod]):.3f})",
+            f"[oms] identifications @ {cfg.fdr_threshold:.0%} FDR: "
+            f"{int(out.open_fdr.n_accepted)} / {Q * cfg.top_k}"]
+
+
+class LargestCall:
+    """Wraps ``mod.<name>`` (a kernel wrapper) to keep the arguments of its
+    first call with the most rows in its first argument; ``replay()``
+    calls the wrapper on them again."""
+
+    def __init__(self, mod, name: str):
+        self.mod, self.name, self.orig = mod, name, getattr(mod, name)
+        self.rows, self.args, self.kw = -1, None, None
+
+    def __enter__(self):
+        def kept(*a, **kw):
+            if a[0].shape[0] > self.rows:
+                self.rows, self.args, self.kw = a[0].shape[0], a, kw
+            return self.orig(*a, **kw)
+        setattr(self.mod, self.name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+    def replay(self):
+        return self.orig(*self.args, **self.kw)
+
+
+def _profile_line(name: str, prof: dict, batches: int) -> str:
+    if not prof["n_events"]:
+        return (f"[cli] serve {name} device profile: torch.profiler recorded no "
+                f"device activity (idle share and kernel times not measured)")
+    ks = ", ".join(f"{k} {n} kernels {ms:.3f} ms ({ms / batches:.4f} ms a batch)"
+                   for k, (n, ms) in prof["kernels"].items())
+    return (f"[cli] serve {name} device profile ({batches} micro-batches in "
+            f"process): device busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+            f"from the first request read to the return, idle share "
+            f"{prof['idle_share']:.4f}; copies {prof['copy_ms']:.2f} ms; {ks}")
+
+
+def _serve_line(name: str, st: dict, t: float, counts: dict) -> str:
+    used = {k: v for k, v in counts.items() if v}
+    return (f"[cli] serve {name}: answered {int(st['answered'])} in {st['s']:.2f}s "
+            f"({int(st['qps'])} q/s; process {t:.1f}s), {int(st['batches'])} "
+            f"micro-batches ({st['qpb']:.1f} q/batch), wait p50/p99 "
+            f"{st['wait50']:.2f}/{st['wait99']:.2f} ms, e2e p50/p99 "
+            f"{st['e2e50']:.2f}/{st['e2e99']:.2f} ms; launches (in-process run) "
+            f"{json.dumps(used)}")
+
+
+def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds) -> dict:
+    """Phase 16: build, search, queries, serve (resident, streamed, cached,
+    cascade) and trace-report through ``python -m repro_torch.launch.oms``.
+    Returns {kernel: {path: launches}} of the in-process serve runs."""
+    import os
+    from repro_torch.data.spectra import LibraryConfig
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hdencode import ops as hd_ops
+    t_phase = time.perf_counter()
+    Q = lib_cfg.n_queries
+    require(lib_cfg == LibraryConfig(n_refs=lib_cfg.n_refs, n_queries=Q,
+                                     open_tol_da=75.0, seed=SEED),
+            "the launcher's --refs/--queries/--seed do not give phase 3's dataset")
+    data = ["--refs", lib_cfg.n_refs, "--seed", SEED]
+    dev = ["--device", DEVICE]
+    names = sorted(os.listdir(STORE_DIR))
+    need = sum((STORE_DIR / n).stat().st_size for n in names)
+    free = shutil.disk_usage(STORE_DIR.parent).free
+    log(f"[cli] free space at {STORE_DIR.parent}: {free / 1e9:.2f} GB; a second "
+        f"store needs {need / 1e9:.2f} GB")
+    require(free > 2 * need, f"not enough free disk for the launcher's store: "
+            f"{free} bytes free, {2 * need} wanted")
+
+    # 1. build: the same store as phase 12, byte for byte
+    shutil.rmtree(CLI_STORE_DIR, ignore_errors=True)
+    try:
+        o, _, t = oms_cli(["build", "--store", CLI_STORE_DIR, *data,
+                           "--encode-backend", "pallas", "--encode-batch",
+                           ENCODE_BATCH, "--chunk-rows", CHUNK_ROWS, *dev], "build")
+        require(sorted(os.listdir(CLI_STORE_DIR)) == names,
+                "the launcher's store has other files than phase 12's")
+        for n in names:
+            require(same_bytes(STORE_DIR / n, CLI_STORE_DIR / n),
+                    f"the launcher's {n} differs from phase 12's")
+        log(f"[cli] build (process {t:.1f}s): {o.strip().splitlines()[-1]}; "
+            f"{len(names)} files byte-identical to phase 12's store")
+    finally:
+        shutil.rmtree(CLI_STORE_DIR, ignore_errors=True)
+
+    # 2. search, plain and cascade: phase 3's and phase 15's lines
+    search = ["search", "--store", STORE_DIR, "--queries", Q, "--seed", SEED,
+              "--backend", "fused", "--encode-backend", "pallas",
+              "--encode-batch", ENCODE_BATCH, "--max-r", cfg.max_r, *dev]
+    o, _, t = oms_cli(search, "search")
+    lines = o.splitlines()
+    expect = result_lines(out, ds, cfg, Q)
+    for want in expect:
+        require(want in lines, f"search printed no line {want!r}:\n{o}")
+    split = [x for x in lines if "stage split" in x or "searched" in x]
+    log(f"[cli] search (process {t:.1f}s): recall@1 and identification lines == "
+        f"phase 3's ({' | '.join(x[6:] for x in expect)}); {' | '.join(split)}")
+    casc = pipe.search_cascade_encoded(hvs, q_pmz, q_charge, narrow_tol_da=NARROW_TOL_DA)
+    n_id = int(casc.identified_stage1.sum())
+    o, _, t = oms_cli([*search, "--cascade", "--narrow-tol-da", NARROW_TOL_DA],
+                      "search --cascade")
+    lines = o.splitlines()
+    cl = [x for x in lines if x.startswith("[oms] cascade:")]
+    require(len(cl) == 1 and f"stage1 identified {n_id}/{Q} ({NARROW_TOL_DA} Da)"
+            in cl[0], f"search --cascade: stage 1 did not identify {n_id}:\n{o}")
+    for want in result_lines(casc, ds, cfg, Q):
+        require(want in lines, f"search --cascade printed no line {want!r}:\n{o}")
+    split = [x for x in lines if "stage split" in x]
+    log(f"[cli] search --cascade (process {t:.1f}s): {cl[0][6:]}; recall and "
+        f"identification lines == the in-process cascade's; {' | '.join(split)}")
+
+    # 3. queries
+    _, _, t = oms_cli(["queries", "--queries", Q, *data], "queries", stdout=REQUESTS_FILE)
+    reqs = REQUESTS_FILE.read_text().splitlines(keepends=True)
+    require(len(reqs) == Q, f"queries wrote {len(reqs)} lines for {Q} queries")
+    for i in (0, Q // 2, Q - 1):
+        r = json.loads(reqs[i])
+        require(r["id"] == i and r["pmz"] == float(ds.queries.pmz[i])
+                and r["charge"] == int(ds.queries.charge[i]),
+                f"request {i} is not phase 3's query {i}")
+    log(f"[cli] queries (process {t:.1f}s): {Q} requests, "
+        f"{REQUESTS_FILE.stat().st_size / 1e6:.1f} MB")
+    head_file = REQUESTS_FILE.with_name("smoke_requests_head.jsonl")
+    head_file.write_text("".join(reqs[:STREAM_SERVE_REQUESTS]))
+    twice_file = REQUESTS_FILE.with_name("smoke_requests_twice.jsonl")
+    twice_file.write_text("".join(reqs[:CACHE_REQUESTS]) * 2)
+    in_process_file = REQUESTS_FILE.with_name("smoke_requests_in_process.jsonl")
+    in_process_file.write_text("".join(reqs[:IN_PROCESS_REQUESTS]))
+
+    serve = ["serve", "--store", STORE_DIR, "--backend", "fused", "--encode-backend",
+             "pallas", "--max-r", cfg.max_r, *dev]
+    by_path = {"hdencode": {}, "fused_search": {}}
+    stats = {}
+
+    def run_serve(name, label, args, stdin, cli_only=(), in_process=None):
+        """The subprocess (with ``cli_only`` added) on ``stdin``, then the
+        profiled in-process run on ``in_process`` (default: ``stdin``),
+        which reads the launch counts and must answer as the subprocess
+        did for the same requests."""
+        o, e, t = oms_cli([*serve, *args, *cli_only], f"serve {name}", stdin=stdin)
+        lines = o.splitlines(keepends=True)
+        src = in_process or stdin
+        with open(src) as fin:
+            n_in = sum(1 for _ in fin)
+        with open(src) as fin:
+            o2, e2, counts, _, prof = oms_in_process([*serve, *args], fin,
+                                                     profile=True)
+        require(o2.splitlines(keepends=True) == lines[:n_in] and len(lines) >= n_in,
+                f"serve {name}: the in-process run answered otherwise")
+        st = serve_stats(e)
+        stats[name] = st
+        log(_serve_line(name, st, t, counts))
+        log(_profile_line(name, prof, int(serve_stats(e2)["batches"])))
+        for k in by_path:
+            require(counts[k] > 0, f"serve {name} launched no {k}")
+            by_path[k][f"serve {label} ({n_in:,} requests, in process)"] = counts[k]
+        return lines, st
+
+    # 4. resident, every request: phase 3's rows; one micro-batch's kernel
+    # calls kept from the in-process run and replayed
+    with LargestCall(hd_ops, "hdencode") as hd, LargestCall(hops, "fused_search") as fs:
+        res_lines, st4 = run_serve(
+            "resident", "resident", ["--resident", "--no-result-cache"],
+            REQUESTS_FILE, cli_only=["--trace", SERVE_TRACE, "--metrics", "-"],
+            in_process=in_process_file)
+    hd_ms, hd_dev, fs_ms = cuda_ms(hd.replay), graph_ms(hd.replay), cuda_ms(fs.replay)
+    log(f"[cli] one resident micro-batch's kernel calls replayed at their serve "
+        f"shapes (CUDA events, median of {TIMING_ITERS}): hdencode "
+        f"{tuple(hd.args[0].shape)} peaks {hd_ms:.4f} ms (device {hd_dev:.4f} ms in "
+        f"a graph), fused_search {fs.rows} padded queries x {fs.args[6].shape[0]} "
+        f"blocks x {fs.kw['rk']} rows {fs_ms:.4f} ms")
+    require(len(res_lines) == Q and int(st4["answered"]) == Q,
+            "serve resident did not answer every request")
+    for i, (line, want) in enumerate(zip(res_lines, payloads_of(out.result))):
+        if json.loads(line) != {"id": i, **want}:
+            fail(f"serve resident: response {i} differs from phase 3's row: {line}")
+    log(f"[cli] serve resident: all {Q} responses == phase 3's result rows")
+
+    # 5. streamed, the first requests: byte-identical to run 4's
+    head = "".join(res_lines[:STREAM_SERVE_REQUESTS])
+    st_lines, st5 = run_serve(
+        "streamed", f"streamed {STREAM_SERVE_SLAB_ROWS} rows a slab",
+        ["--slab-rows", STREAM_SERVE_SLAB_ROWS, "--max-batch", STREAM_SERVE_BATCH,
+         "--no-result-cache"], head_file, cli_only=["--trace", STREAM_TRACE])
+    require("".join(st_lines) == head, "serve streamed differs from serve resident")
+    log(f"[cli] serve streamed: {STREAM_SERVE_REQUESTS} responses byte-identical to "
+        f"serve resident; {st5['slabs']} slabs scanned")
+
+    # 6. the result cache: the first requests twice, the second copy all hits
+    c_lines, st6 = run_serve(
+        "cached", "resident cached",
+        ["--resident"], twice_file)
+    require("".join(c_lines) == "".join(res_lines[:CACHE_REQUESTS]) * 2,
+            "serve with the result cache differs from serve without it")
+    require(st6["cache"] == (CACHE_REQUESTS, 2 * CACHE_REQUESTS),
+            f"result cache hits {st6['cache']}, want {CACHE_REQUESTS} of "
+            f"{2 * CACHE_REQUESTS}")
+    log(f"[cli] serve cached: byte-identical to the uncached lines; cache "
+        f"{st6['cache'][0]}/{st6['cache'][1]} hits")
+
+    # 7. the cascade, per query: single-query in-process cascades on a sample
+    k_lines, _ = run_serve(
+        "cascade", "resident cascade",
+        ["--resident", "--cascade", "--narrow-tol-da", NARROW_TOL_DA,
+         "--no-result-cache"], REQUESTS_FILE, in_process=in_process_file)
+    require(len(k_lines) == Q, "serve --cascade did not answer every request")
+    sample = sorted({int(i) for i in torch.linspace(0, Q - 1, CASCADE_SAMPLE).round()})
+    for i in sample:
+        c = pipe.search_cascade_encoded(hvs[i:i + 1], q_pmz[i:i + 1], q_charge[i:i + 1],
+                                        narrow_tol_da=NARROW_TOL_DA,
+                                        stage1_per_query=True)
+        want = {"id": i, **payloads_of(c.result)[0]}
+        require(json.loads(k_lines[i]) == want, f"serve --cascade response {i} "
+                f"differs from a single-query cascade: {k_lines[i]} vs {want}")
+    log(f"[cli] serve cascade: {len(sample)} sampled responses == single-query "
+        f"in-process cascades (stage1_per_query)")
+
+    # 8. trace-report on both serve traces
+    o, _, _ = oms_cli(["trace-report", "--json", SERVE_TRACE], "trace-report")
+    roll = json.loads(o)
+    require(roll.get("serve.batch", {}).get("count") == int(st4["batches"]),
+            f"trace: {roll.get('serve.batch')} serve.batch spans for "
+            f"{int(st4['batches'])} micro-batches")
+    missing = {"pipeline.encode", "pipeline.plan", "pipeline.scan",
+               "pipeline.fdr"} - set(roll)
+    require(not missing, f"the serve trace has no {sorted(missing)} spans")
+    o, _, _ = oms_cli(["trace-report", "--json", STREAM_TRACE], "trace-report")
+    roll5 = json.loads(o)
+    require(roll5.get("serve.slab.search", {}).get("count") == st5["slabs"],
+            f"trace: {roll5.get('serve.slab.search')} serve.slab.search spans for "
+            f"{st5['slabs']} slabs scanned")
+    parts = ", ".join(f"{n} {roll[n]['count']} x {roll[n]['total_us'] / roll[n]['count']:.0f} us "
+                      f"(p50/p99 buckets {roll[n]['p50_us']:.0f}/{roll[n]['p99_us']:.0f})"
+                      for n in ("serve.batch", "pipeline.encode", "pipeline.plan",
+                                "pipeline.scan", "pipeline.fdr"))
+    sparts = ", ".join(f"{n} {roll5[n]['count']} x "
+                       f"{roll5[n]['total_us'] / roll5[n]['count'] / 1e3:.1f} ms"
+                       for n in ("serve.batch", "serve.scan", "serve.slab.fetch",
+                                 "serve.slab.search", "serve.slab.merge"))
+    log(f"[cli] trace-report: resident trace validates, serve.batch == "
+        f"{int(st4['batches'])} micro-batches, host span means {parts}; streamed "
+        f"trace serve.slab.search == {st5['slabs']} slabs, means {sparts}")
+
+    # 9. hot reload: the store grows under a streamed serve (last: it
+    # changes phase 12's store, which the finally deletes)
+    new_file = REQUESTS_FILE.with_name("smoke_requests_new.jsonl")
+    oms_cli(["queries", "--refs", HOT_RELOAD_REFS, "--seed", SEED + 1, "--queries",
+             HOT_RELOAD_REQUESTS], "queries of the appended spectra", stdout=new_file)
+    first = reqs[:HOT_RELOAD_REQUESTS]
+    rest = new_file.read_text().splitlines(keepends=True)
+    grown = []
+
+    def grow():
+        o, _, t = oms_cli(["build", "--store", STORE_DIR, "--append", "--refs",
+                           HOT_RELOAD_REFS, "--seed", SEED + 1, "--encode-backend",
+                           "pallas", "--encode-batch", ENCODE_BATCH, "--chunk-rows",
+                           CHUNK_ROWS, *dev], "build --append")
+        grown.append(f"{o.strip()} (process {t:.1f}s)")
+
+    from repro_torch.core.pipeline import OMSPipeline
+    from repro_torch.serve import QuerySpec, coalesce_queries
+    o, err, counts, t, _ = oms_in_process(
+        [*serve, "--slab-rows", STREAM_SERVE_SLAB_ROWS, "--max-batch",
+         STREAM_SERVE_BATCH, "--no-result-cache", "--hot-reload",
+         HOT_RELOAD_POLL_S, "--trace", RELOAD_TRACE], GrowingStdin(first, rest, grow))
+    got = o.splitlines(keepends=True)
+    require(len(grown) == 1 and "1 hot-reloads" in err,
+            f"serve --hot-reload did not reload once: {err[-2000:]}")
+    require(got[:len(first)] == res_lines[:len(first)],
+            "hot reload: the responses before the append differ from serve resident")
+    spectra = coalesce_queries([QuerySpec(
+        mz=r["mz"], intensity=r["intensity"], pmz=r["pmz"], charge=r["charge"])
+        for r in map(json.loads, rest)])
+    cold = OMSPipeline.from_store(STORE_DIR, cfg, device=DEVICE).search(spectra)
+    old_answers = pipe.search(spectra)
+    want = [{"id": json.loads(r)["id"], **p} for r, p in zip(rest, payloads_of(cold.result))]
+    require([json.loads(x) for x in got[len(first):]] == want,
+            "hot reload: the responses after the append differ from a cold "
+            "start on the grown store")
+    n_new = sum(a != b for a, b in zip(payloads_of(old_answers.result),
+                                       payloads_of(cold.result)))
+    require(n_new > 0, "hot reload: the appended spectra changed no answer")
+    st = serve_stats(err)
+    log(_serve_line("streamed + hot reload", st, t, counts))
+    log(f"[cli] serve --hot-reload: {grown[0]}; the first {len(first)} responses "
+        f"== serve resident, the {len(rest)} after the reload == a cold start on "
+        f"the grown store ({n_new} of them changed by the appended spectra); "
+        f"{[x for x in err.splitlines() if 'hot-reload:' in x][0].split('] ', 1)[1]}")
+    for k in by_path:
+        require(counts[k] > 0, f"serve --hot-reload launched no {k}")
+        by_path[k][f"serve streamed + hot reload ({2 * HOT_RELOAD_REQUESTS} "
+                   f"requests, in process)"] = counts[k]
+    log(f"[cli] phase 16 in {time.perf_counter() - t_phase:.1f}s")
+    return by_path
+
 
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
@@ -1665,8 +2209,16 @@ def main() -> int:
         by_path["fused_search"].update(
             phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out))
         del spipe
+        for kernel, paths in phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz,
+                                            q_charge, out, ds).items():
+            by_path[kernel].update(paths)
     finally:
         shutil.rmtree(STORE_DIR, ignore_errors=True)
+        shutil.rmtree(CLI_STORE_DIR, ignore_errors=True)
+        for f in (REQUESTS_FILE, SERVE_TRACE, STREAM_TRACE, RELOAD_TRACE,
+                  *(REQUESTS_FILE.with_name(f"smoke_requests_{x}.jsonl")
+                    for x in ("head", "twice", "new", "in_process"))):
+            f.unlink(missing_ok=True)
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         if k["name"] in ("fused_search", "fused_search_mxu"):

@@ -249,3 +249,32 @@ def build_reference_db_from_runs(runs: Iterable[LibraryRun], *,
         orig_s[at] = r.orig_idx[rows]
     return _layout_sorted(hvs_s, pmz_s, charge_s, decoy_s, orig_s, max_r=max_r,
                           device=device)
+
+
+def candidate_block_stats(db, q_pmz, q_charge, tol_da: float) -> dict:
+    """Host-side orchestrator statistics: how many reference rows would be
+    scanned under block pruning vs exhaustively (the paper's 5.5x comparison-
+    reduction effect, Fig. 6e). ``db`` is anything with the block metadata
+    (a :class:`ReferenceDB` or a streaming layout); used by the launcher and
+    benchmarks, not the hot path.
+    """
+    from repro_torch.core.search import _host     # search imports this module
+    bmin, bmax, bch = (_host(db.block_min), _host(db.block_max),
+                       _host(db.block_charge))
+    q_pmz, q_charge = _host(q_pmz), _host(q_charge)
+    # Vectorised over (query, block); chunked over queries so the boolean
+    # intermediate stays ~a few MiB at any Q.
+    n_blocks = len(bmin)
+    chunk = max(1, (1 << 22) // max(n_blocks, 1))
+    total = 0
+    for s in range(0, len(q_pmz), chunk):
+        qp = q_pmz[s:s + chunk, None]
+        qc = q_charge[s:s + chunk, None]
+        hit = ((bch[None, :] == qc) & (bmax[None, :] >= qp - tol_da)
+               & (bmin[None, :] <= qp + tol_da))
+        total += int(hit.sum())
+    return {
+        "scanned_rows": total * db.max_r,
+        "exhaustive_rows": len(q_pmz) * db.n_rows,
+        "reduction": (len(q_pmz) * db.n_rows) / max(total * db.max_r, 1),
+    }

@@ -44,6 +44,7 @@ from repro_torch.core.search import (SearchParams, SearchResult, _host,
                                      narrow_search_params, oms_search,
                                      plan_search, scanned_rows)
 from repro_torch.data.spectra import SpectraSet
+from repro_torch.obs.trace import span
 from repro_torch.serve import StreamingEngine
 from repro_torch.store import DECOY, TARGET, LibraryStore
 
@@ -304,10 +305,12 @@ class OMSPipeline:
 
     def encode_queries(self, queries: SpectraSet
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return encode_backends.preprocess_encode(
-            queries.mz, queries.intensity, queries.pmz, queries.charge,
-            self.codebooks, self.cfg.preprocess_params,
-            backend=self.cfg.encode_backend, batch=self.cfg.encode_batch)
+        with span("pipeline.encode", spectra=int(queries.mz.shape[0]),
+                  backend=self.cfg.encode_backend):
+            return encode_backends.preprocess_encode(
+                queries.mz, queries.intensity, queries.pmz, queries.charge,
+                self.codebooks, self.cfg.preprocess_params,
+                backend=self.cfg.encode_backend, batch=self.cfg.encode_batch)
 
     def search_params(self, q_pmz, q_charge, *, exhaustive=False,
                       open_tol_da=None, backend=None, top_k=None,
@@ -343,12 +346,16 @@ class OMSPipeline:
         # padding plan.
         qp_np = q_pmz.cpu().numpy()
         qc_np = q_charge.cpu().numpy()
-        params = self.search_params(qp_np, qc_np, exhaustive=exhaustive,
-                                    open_tol_da=open_tol_da, backend=backend,
-                                    top_k=top_k, prefix_words=prefix_words,
-                                    prefix_margin=prefix_margin)
-        result = self._run_search(hvs, q_pmz, q_charge, params, qp_np, qc_np,
-                                  stats)
+        with span("pipeline.plan", queries=int(qp_np.shape[0])):
+            params = self.search_params(qp_np, qc_np, exhaustive=exhaustive,
+                                        open_tol_da=open_tol_da,
+                                        backend=backend, top_k=top_k,
+                                        prefix_words=prefix_words,
+                                        prefix_margin=prefix_margin)
+        with span("pipeline.scan", backend=params.backend,
+                  path="streamed" if self.engine is not None else "resident"):
+            result = self._run_search(hvs, q_pmz, q_charge, params, qp_np,
+                                      qc_np, stats)
 
         def _fdr(row, sim):
             if self.engine is None:
@@ -364,8 +371,9 @@ class OMSPipeline:
             return fdr_filter(sim.to(torch.float32), isd, valid,
                               threshold=self.cfg.fdr_threshold)
 
-        open_fdr = _fdr(result.open_row, result.open_sim)
-        std_fdr = _fdr(result.std_row, result.std_sim)
+        with span("pipeline.fdr"):
+            open_fdr = _fdr(result.open_row, result.open_sim)
+            std_fdr = _fdr(result.std_row, result.std_sim)
         return OMSOutput(result=result, open_fdr=open_fdr, std_fdr=std_fdr)
 
     def _run_search(self, hvs, q_pmz, q_charge, params: SearchParams, qp_np,
@@ -411,28 +419,31 @@ class OMSPipeline:
         k = self.cfg.top_k if top_k is None else top_k
 
         def run_stage(sel: np.ndarray, *, narrow: bool):
-            qp_s, qc_s = qp_np[sel], qc_np[sel]
-            if narrow:
-                # one plan_search per stage: the base params carry a
-                # placeholder k_blocks that narrow_search_params replaces
-                base = SearchParams(
-                    ppm_tol=self.cfg.ppm_tol,
-                    open_tol_da=self.cfg.open_tol_da,
-                    q_block=self.cfg.q_block, k_blocks=1,
-                    backend=backend or self.cfg.backend,
-                    exhaustive=exhaustive, top_k=k)
-                params = narrow_search_params(meta, qp_s, qc_s, base,
-                                              narrow_tol_da=narrow_tol_da)
-            else:
-                params = self.search_params(qp_s, qc_s, exhaustive=exhaustive,
-                                            backend=backend, top_k=k,
-                                            prefix_words=prefix_words,
-                                            prefix_margin=prefix_margin)
-            sel_t = torch.from_numpy(sel.astype(np.int64)).to(hvs.device)
-            res = self._run_search(hvs[sel_t], q_pmz[sel_t], q_charge[sel_t],
-                                   params, qp_s, qc_s)
-            stats = self.engine.last_stats if self.engine is not None else None
-            return res, scanned_rows(meta, len(sel), params), stats
+            with span("pipeline.stage", stage="narrow" if narrow else "open",
+                      queries=int(len(sel))):
+                qp_s, qc_s = qp_np[sel], qc_np[sel]
+                if narrow:
+                    # one plan_search per stage: the base params carry a
+                    # placeholder k_blocks that narrow_search_params replaces
+                    base = SearchParams(
+                        ppm_tol=self.cfg.ppm_tol,
+                        open_tol_da=self.cfg.open_tol_da,
+                        q_block=self.cfg.q_block, k_blocks=1,
+                        backend=backend or self.cfg.backend,
+                        exhaustive=exhaustive, top_k=k)
+                    params = narrow_search_params(meta, qp_s, qc_s, base,
+                                                  narrow_tol_da=narrow_tol_da)
+                else:
+                    params = self.search_params(
+                        qp_s, qc_s, exhaustive=exhaustive, backend=backend,
+                        top_k=k, prefix_words=prefix_words,
+                        prefix_margin=prefix_margin)
+                sel_t = torch.from_numpy(sel.astype(np.int64)).to(hvs.device)
+                res = self._run_search(hvs[sel_t], q_pmz[sel_t],
+                                       q_charge[sel_t], params, qp_s, qc_s)
+                stats = (self.engine.last_stats if self.engine is not None
+                         else None)
+                return res, scanned_rows(meta, len(sel), params), stats
 
         if run_stage1 and not narrow_tol_da < self.cfg.open_tol_da:
             raise ValueError(

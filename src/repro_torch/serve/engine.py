@@ -26,6 +26,14 @@ event marks the searches done with a device buffer: the next copy into that
 buffer waits on it. So the gather of slab ``j + 1`` and its copy overlap
 the search of slab ``j``. On the CPU the slab arrays are used in place.
 
+Spans (``repro_torch.obs``, the reference's names and attributes):
+``serve.scan`` around a whole scan, per slab ``serve.slab.fetch`` (the wait
+for the gather thread's pinned buffer), ``serve.slab.search`` and
+``serve.slab.merge``, and ``serve.seed`` for the dimension cascade's seed
+pass. They time the host: ``search`` and ``merge`` of the full-width scan
+only enqueue launches; the prefix scan's ``search`` ends at the copy of its
+survivor flags to the host.
+
 Live growth: :meth:`StreamingEngine.reload` re-plans over a grown
 (append-only) store and swaps (layout, plan) atomically; a search snapshots
 them at entry and finishes on its snapshot (shard files are never
@@ -53,6 +61,7 @@ from repro_torch.core.search import (SearchParams, SearchResult, _NEG_THRESHOLD,
                                      validate_prefix_words,
                                      validate_search_params)
 from repro_torch.kernels.topk import merge_topk
+from repro_torch.obs.trace import span
 from repro_torch.serve.slabs import (SlabPlan, StoreLayout, plan_slabs,
                                      slab_arrays, slabs_touched)
 
@@ -323,7 +332,8 @@ class StreamingEngine:
                 nxt = pool.submit(fetch, 0)
             for j, s in enumerate(touched):
                 i = j % 2
-                gather_s = nxt.result() if nxt else fetch(j)
+                with span("serve.slab.fetch", slab=int(s)):
+                    gather_s = nxt.result() if nxt else fetch(j)
                 db, up = bufs.upload(i, clock)
                 nxt = pool.submit(fetch, j + 1) if (
                     pool and j + 1 < len(touched)) else None
@@ -369,13 +379,16 @@ class StreamingEngine:
                                       q_charge_np=qc_np)
         qh, qp, qc = q_hvs[gather], q_pmz[gather], q_charge[gather]
         timings = [] if stats is not None else None
-        if params.prefix_words:
-            run, st = self._scan_prefix(layout, plan, touched, qh, qp, qc,
-                                        params, dim, qp_np, qc_np, timings)
-        else:
-            run, st = self._scan_full(layout, plan, touched, qh, qp, qc,
-                                      params, dim, timings)
-        self._set_stats(st)
+        with span("serve.scan", queries=Q, slabs=len(touched),
+                  mode="prefix" if params.prefix_words else "full") as sp:
+            if params.prefix_words:
+                run, st = self._scan_prefix(layout, plan, touched, qh, qp, qc,
+                                            params, dim, qp_np, qc_np, timings)
+            else:
+                run, st = self._scan_full(layout, plan, touched, qh, qp, qc,
+                                          params, dim, timings)
+            self._set_stats(st)
+            sp.add(rows=st.scanned_rows, bytes=st.scanned_bytes)
 
         if run is None:          # no slab intersects any query window
             z = torch.full((Q, K), -1, dtype=torch.int32, device=self.device)
@@ -410,10 +423,15 @@ class StreamingEngine:
         with contextlib.closing(self._stream(layout, plan, touched, None,
                                              timings)) as slabs:
             for s, db in slabs:
-                rows_read += self._slab_real_rows(layout, plan, s)
-                out = _search_sorted_padded(db, qh, qp, qc, params=local, dim=dim)
-                part = _offset_rows(*out, s * plan.slab_rows)
-                run = part if run is None else _merge_partials(run, part, K)
+                n_real = self._slab_real_rows(layout, plan, s)
+                rows_read += n_real
+                with span("serve.slab.search", slab=s, rows=n_real,
+                          bytes=n_real * W * 4):
+                    out = _search_sorted_padded(db, qh, qp, qc, params=local,
+                                                dim=dim)
+                with span("serve.slab.merge", slab=s):
+                    part = _offset_rows(*out, s * plan.slab_rows)
+                    run = part if run is None else _merge_partials(run, part, K)
         st = StreamStats(plan.n_slabs, len(touched), plan.slab_rows,
                          scanned_rows=rows_read,
                          scanned_bytes=rows_read * W * 4)
@@ -453,7 +471,9 @@ class StreamingEngine:
         seed_rows = plan_seed_rows(layout.pmz, layout.charge, qp_np, qc_np,
                                    p.prefix_seed_da)
         if seed_rows.size:
-            thr_std, thr_open = kth_thresholds(rescore(seed_rows), K)
+            with span("serve.seed", rows=int(seed_rows.size),
+                      bytes=int(seed_rows.size) * W * 4):
+                thr_std, thr_open = kth_thresholds(rescore(seed_rows), K)
             rows_read += seed_rows.size
             bytes_read += seed_rows.size * W * 4
         else:
@@ -467,24 +487,29 @@ class StreamingEngine:
                 n_real = self._slab_real_rows(layout, plan, s)
                 rows_read += n_real
                 bytes_read += n_real * P * 4
-                if run is not None:
-                    # Tighten with the running k-th: still a subset k-th,
-                    # so the exact-mode guarantee holds.
-                    rs, ro = kth_thresholds(run, K)
-                    ts, to = torch.maximum(thr_std, rs), torch.maximum(thr_open, ro)
-                else:
-                    ts, to = thr_std, thr_open
-                # A prefix slab holds only the first P words: it is its own
-                # prefix_hvs.
-                flags = _prefix_flags(db, db.hvs, q_prefix, qp, qc, ts, to,
-                                      params=local, dim=dim)
-                surv = np.flatnonzero(_host(flags))
+                with span("serve.slab.search", slab=s, rows=n_real,
+                          bytes=n_real * P * 4):
+                    if run is not None:
+                        # Tighten with the running k-th: still a subset
+                        # k-th, so the exact-mode guarantee holds.
+                        rs, ro = kth_thresholds(run, K)
+                        ts = torch.maximum(thr_std, rs)
+                        to = torch.maximum(thr_open, ro)
+                    else:
+                        ts, to = thr_std, thr_open
+                    # A prefix slab holds only the first P words: it is its
+                    # own prefix_hvs.
+                    flags = _prefix_flags(db, db.hvs, q_prefix, qp, qc, ts, to,
+                                          params=local, dim=dim)
+                    surv = np.flatnonzero(_host(flags))
                 if surv.size == 0:
                     continue
                 rows_read += surv.size
                 bytes_read += surv.size * W * 4
-                part = rescore(surv + s * plan.slab_rows)
-                run = part if run is None else _merge_partials(run, part, K)
+                with span("serve.slab.merge", slab=s, rows=int(surv.size),
+                          bytes=int(surv.size) * W * 4):
+                    part = rescore(surv + s * plan.slab_rows)
+                    run = part if run is None else _merge_partials(run, part, K)
 
         if p.prefix_margin >= 0 and seed_rows.size:
             # Margin mode may prune true winners; folding the seed-pass

@@ -69,6 +69,44 @@ def test_store_serve_and_cascade_modules_are_covered():
             "repro_torch.serve.slabs", "repro_torch.core.cascade"} <= mods
 
 
+def test_launcher_obs_and_serve_front_modules_are_covered():
+    """The static scan and the jax-free import reach the launcher, the
+    observability layer, the serve front and the baselines."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    assert {"launch/oms.py", "obs/trace.py", "obs/metrics.py", "obs/report.py",
+            "serve/scheduler.py", "serve/result_cache.py",
+            "core/baselines.py"} <= files
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch.launch.oms", "repro_torch.obs.trace",
+            "repro_torch.obs.report", "repro_torch.serve.scheduler",
+            "repro_torch.serve.result_cache",
+            "repro_torch.core.baselines"} <= mods
+
+
+def test_launcher_runs_with_jax_absent(tmp_path):
+    """``python -m repro_torch.launch.oms`` with jax and the reference
+    package made unimportable: ``queries`` runs, ``build`` without
+    ``--device`` refuses the CPU-only host."""
+    pre = ("import sys, runpy\n"
+           "sys.modules['jax'] = None\n"
+           "sys.modules['repro'] = None\n"
+           "sys.argv = ['oms'] + sys.argv[1:]\n"
+           "runpy.run_module('repro_torch.launch.oms', run_name='__main__')\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", pre, "queries", "--refs", "64",
+                          "--queries", "3"], capture_output=True, text=True,
+                         timeout=120, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert len(out.stdout.splitlines()) == 3
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, "-c", pre, "build", "--store",
+                              "s", "--refs", "64"], capture_output=True,
+                             text=True, timeout=120, env=env, cwd=tmp_path)
+        assert out.returncode != 0 and "CUDA is not available" in out.stderr
+        assert not (tmp_path / "s").exists()
+
+
 def test_store_entry_points_without_device_raise_when_cuda_is_missing(
         monkeypatch, tmp_path):
     from repro_torch.serve import StoreLayout, StreamingEngine
@@ -101,6 +139,19 @@ def test_pipeline_without_device_raises_when_cuda_is_missing(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.resolve_device("cuda")
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_dense_baseline_without_device_raises_when_cuda_is_missing(
+        monkeypatch):
+    """Numpy peaks binned without ``device`` go to the card, not the host."""
+    from repro_torch.core.baselines import bin_spectra_dense
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = make_dataset(LibraryConfig(n_refs=8, n_queries=2))
+    kw = dict(bin_size=0.05, mz_min=200.0, mz_max=2000.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bin_spectra_dense(ds.refs.mz, ds.refs.intensity, **kw)
+    assert bin_spectra_dense(ds.refs.mz, ds.refs.intensity, **kw,
+                             device="cpu").device.type == "cpu"
 
 
 def test_port_dataset_is_seeded_and_shaped():
