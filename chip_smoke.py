@@ -112,6 +112,20 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      subprocess did; one resident micro-batch's ``hdencode`` and
      ``fused_search`` calls are replayed at their serve shapes and timed
      with CUDA events.
+ 17. the autotuner and the contract analyzer. Inside phase 16, before
+     its hot reload grows the store: the card's float32 sqrt (the
+     preprocess's) against the float64 one rounded once; ``tune`` in
+     process at the main path's shapes (the tile and fused backends on one
+     block of 16 queries x its scanned rows at dim 4096, k = 1; rescore on
+     the cascade's real rows), every candidate held bit for bit against
+     the defaults' output by the sweep, the winner table (ms, bound ms from
+     ``repro_torch.utils.roofline``, fraction) with each winner against
+     the default; ``search`` and resident ``serve`` (the first 1,024
+     requests) in process with the winners' cache: output byte-identical
+     to the untuned runs (clock readings masked) and the cache hit at
+     dispatch. After phase 16: ``analyze --imports`` on the card, every
+     recording under sync debug mode "error"; it exits 0; n_checks and
+     each combination's allocator peak.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
@@ -175,19 +189,8 @@ CASCADE_TILES = {"fused": "hamming_matrix", "kernel_vpu": "hamming_matrix",
 MARGIN_QUERIES = PATH_CHECK_QUERIES
 PLAIN_TILE_BACKEND = "plain_tile"   # registered by phase 9 for its yardstick
 
-# Device peaks for the lower bounds (NVIDIA H100 SXM data sheet; CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute capability
-# 9.0: 64 32-bit integer add/logic (incl. 3-input LOP3) and 16 popc results
-# per clock per SM).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_CLK_SM = 64
-POPC_PER_CLK_SM = 16
-INT8_TENSOR_OPS_PER_S = 1979e12
-# mma.sync m16n8k256 .b1 AND-popc instructions issued per clock per SM,
-# measured by scripts/bmma_probe.py on an NVIDIA H100 80GB HBM3, 700.00 W
-# (PERF.md): each covers 16 x 8 pairs x 256 bits.
-BMMA_PER_CLK_SM = 0.589
-BMMA_PAIR_BITS = 16 * 8 * 256
+# Device peaks and the kernels' work counts for the lower bounds live in
+# src/repro_torch/utils/roofline.py, which the tune sweep reads too.
 # Grouped fused kernels: runs of consecutive main-path query blocks (2G + 1
 # with G = 8 tiles per CTA) held against the plain versions at these k.
 FUSED_GROUP_RUN = 2 * 8 + 1
@@ -252,6 +255,18 @@ HOT_RELOAD_REQUESTS = 256
 HOT_RELOAD_REFS = 1 << 16
 HOT_RELOAD_POLL_S = 0.1
 RELOAD_TRACE = HERE / "build" / "smoke_reload.trace.json"
+
+# Phase 17: the autotuner and the contract analyzer. The sweep runs at the
+# main path's shapes (one query block of 16 x its scanned rows at dim
+# 4096; the fused backends at k = 1; rescore on the cascade's real rows,
+# whose bucket the survivor rescore pads to), each candidate timed as the
+# median of TUNE_ITERS; tuned `search` and resident `serve` (the first
+# 1,024 requests) run in process with the winners' cache.
+TUNE_CACHE = HERE / "build" / "smoke_tune_cache.json"
+TUNE_ITERS = 20
+TUNE_QUERIES = 16
+ANALYZE_REPORT = HERE / "build" / "smoke_analyze.json"
+SQRT_CHECK_SPECTRA = 1 << 16
 
 
 def log(msg: str) -> None:
@@ -759,9 +774,8 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     from repro_torch.kernels.hdencode import ref as hd_ref
     import numpy as np
 
-    clk, n_sms = env["clock_hz"], env["n_sms"]
-    int_rate = INT32_OPS_PER_CLK_SM * n_sms * clk
-    popc_rate = POPC_PER_CLK_SM * n_sms * clk
+    from repro_torch.utils import roofline
+    card = dict(clock_hz=env["clock_hz"], n_sms=env["n_sms"])
     cb = pipe.codebooks
     W = cb.id_hvs.shape[1]
 
@@ -779,20 +793,17 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     hd_plain_ms = cuda_ms(lambda: hd_ref.hdencode(*hd_args))
     B, P = pre.bins.shape
     n_valid = int(pre.mask.sum())
-    # The least work the function needs, per (valid peak, word): one XOR to
-    # bind, then a carry-save add into a bit-sliced counter (a full adder is
-    # two LOP3s and retires one word, so ~2 ops per peak word); per output
-    # word: the majority compare of a ceil(log2(P+1))-plane count against n/2
-    # plus its tie test (~2 ops per plane) and the tie-break select.
-    planes = max(1, int(P).bit_length())
-    hd_ops_n = n_valid * W * 3 + B * W * (2 * planes + 1)
-    # Bytes: peaks, the codebook rows this batch touches, tiebreak, output.
+    # The least work the function needs (roofline.hdencode_roofline): the
+    # bind XOR and bit-sliced counter adds per valid peak word, the
+    # majority compare per output word; the peaks, the codebook rows this
+    # batch touches, the tiebreak and the output moved once.
     valid_bins = torch.unique(pre.bins[pre.mask]).numel()
     valid_levels = torch.unique(pre.levels[pre.mask]).numel()
-    hd_bytes = (B * P * 9 + (valid_bins + valid_levels) * W * 4 + W * 4 + B * W * 4)
-    hd_ops_s, hd_bytes_s = hd_ops_n / int_rate, hd_bytes / HBM_BYTES_PER_S
-    hd_bound = max(hd_ops_s, hd_bytes_s) * 1e3
-    hd_by = "operations" if hd_ops_s >= hd_bytes_s else "bytes"
+    hd_roof = roofline.hdencode_roofline(B, P, W, n_valid, valid_bins + valid_levels,
+                                         **card)
+    hd_ops_s, hd_bytes_s = hd_roof.t_compute, hd_roof.t_memory
+    hd_bound = hd_roof.t_bound * 1e3
+    hd_by = hd_roof.bound_by
     # What the kernel gathers: one ID row and one level row per valid peak
     # (served by L2 and L1, not HBM: the touched codebook rows fit in L2).
     hd_gather = 2 * n_valid * W * 4
@@ -814,26 +825,22 @@ def phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds):
     fs_plain_ms = cuda_ms(lambda: fs_ref.fused_search(*fs_args, **kw),
                           iters=FUSED_PLAIN_ITERS, warmup=False)
     pairs = qh.shape[0] * rk
-    # Operations: the cheapest of three routes to the same Hamming tiles — a
-    # popc per (pair, word); 2 * dim int8 tensor-core ops per pair (a +-1
-    # dot); or the binary tensor cores, one m16n8k256 AND-popc MMA per
-    # 16 x 8 pairs x 256 bits at the rate the probe measured on this card.
-    routes = {"popc": pairs * W / popc_rate,
-              "int8 tensor cores": pairs * pipe.cfg.dim * 2 / INT8_TENSOR_OPS_PER_S,
-              "binary tensor cores": pairs * 32 * W / BMMA_PAIR_BITS
-              / (BMMA_PER_CLK_SM * n_sms * clk)}
-    fs_route = min(routes, key=routes.get)
+    # Operations: the cheapest of three routes to the same Hamming tiles
+    # (roofline.hamming_routes: popc, int8 +-1 dot, binary tensor cores);
+    # bytes: the rows the blocks cover, the queries, the outputs.
+    routes = {name: ops / rate for name, (ops, rate) in roofline.hamming_routes(
+        pairs, W, pipe.cfg.dim, **card).items()}
     u_mean, u_max = union_stats(starts, rk, db.n_rows)
     scanned = torch.unique(starts).cpu().numpy()
     covered = np.zeros(db.n_rows, bool)
     for s in scanned:
         covered[s:s + rk] = True
-    fs_bytes = (int(covered.sum()) * (W * 4 + 8) + qh.numel() * 4 + qh.shape[0] * 8
-                + starts.numel() * 4 + 4 * qh.shape[0] * params.top_k * 4)
-    fs_ops_s, fs_bytes_s = routes[fs_route], fs_bytes / HBM_BYTES_PER_S
-    fs_bound = max(fs_ops_s, fs_bytes_s) * 1e3
-    fs_by = "operations" if fs_ops_s >= fs_bytes_s else "bytes"
-    fs_route = fs_route if fs_by == "operations" else "HBM"
+    fs_roof = roofline.fused_roofline(qh.shape[0], rk, int(covered.sum()), W,
+                                      pipe.cfg.dim, params.top_k, nqb, **card)
+    fs_bytes_s = fs_roof.t_memory
+    fs_bound = fs_roof.t_bound * 1e3
+    fs_by = fs_roof.bound_by
+    fs_route = fs_roof.route if fs_by == "operations" else "HBM"
     log(f"[times] hdencode ({B} x {P} peaks, {n_valid} valid, {valid_bins} bins "
         f"touched, dim {cb.dim}): kernel {hd_ms:.4f} ms (device {hd_device_ms:.4f} ms "
         f"in a graph), plain {hd_plain_ms:.4f} ms, bound {hd_bound:.4f} ms "
@@ -924,9 +931,11 @@ def phase_tile_edges(torch) -> None:
         f"offset in words) {', '.join(str(c) for c in TILE_EDGE_SHAPES)}: bit-identical")
 
 
-def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
+def phase_tile_check(torch, env, pipe, hvs, q_pmz, q_charge) -> dict:
     import numpy as np
     from repro_torch.core import packing, search
+    from repro_torch.utils import roofline
+    card = dict(clock_hz=env["clock_hz"], n_sms=env["n_sms"])
     from repro_torch.kernels.hamming import ops as hops
     from repro_torch.kernels.hamming import ref as href
     from repro_torch.kernels.hamming_mxu import ops as mops
@@ -973,8 +982,9 @@ def phase_tile_check(torch, pipe, hvs, q_pmz, q_charge) -> dict:
     Rb, Wb = r.shape
     bucket = {"ms": cuda_ms(lambda: hops.hamming_matrix(q, r)),
               "mxu_ms": cuda_ms(lambda: mops.hamming_matrix(q, r, dim)),
-              "bound_ms": (Rb * Wb * 4 + q.numel() * 4 + QB * Rb * 4)
-              / HBM_BYTES_PER_S * 1e3, "shape": f"{QB} x {Rb} x {Wb}"}
+              "bound_ms": roofline.tile_roofline(
+                  QB, Rb, Wb, dim, **card).t_bound * 1e3,
+              "shape": f"{QB} x {Rb} x {Wb}"}
     # Library yardstick at the bucket shape: one torch._int_mm on +-1 int8
     # operands unpacked beforehand (not timed; B 17.2 GB, unpacked in row
     # chunks, multiplied in one call), A padded to the 32 rows its shape
@@ -1116,9 +1126,9 @@ def _tile_shapes(kernel: str, fn):
     mod = hops if kernel == "hamming_matrix" else mops
     orig, shapes = mod.hamming_matrix, collections.Counter()
 
-    def tallied(q, r, *rest):
+    def tallied(q, r, *rest, **kw):
         shapes[f"{r.shape[0]} x {r.shape[1]}"] += 1
-        return orig(q, r, *rest)
+        return orig(q, r, *rest, **kw)
     mod.hamming_matrix = tallied
     try:
         return fn(), dict(shapes)
@@ -1224,8 +1234,7 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     from repro_torch.kernels.hamming_mxu import ops as mops
     from repro_torch.kernels.hamming_mxu import ref as mref
 
-    clk, n_sms = env["clock_hz"], env["n_sms"]
-    popc_rate = POPC_PER_CLK_SM * n_sms * clk
+    from repro_torch.utils import roofline
     dim = pipe.cfg.dim
     params, args, pick, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
     q, r = _block_pairs(pipe, params, args, rk)[0]
@@ -1250,12 +1259,14 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
     del a8, b8, dot
     errs = {"hamming_matrix": max_abs_err([(hops.hamming_matrix(q, r), tile)]),
             "hamming_mxu": max_abs_err([(mops.hamming_matrix(q, r, dim), tile)])}
-    # The least work for the tile: read the rows and queries once, write the
-    # tile once; operations by the cheaper route (int8 +-1 dot or popc).
-    t_bytes = (R * W * 4 + Q * W * 4 + Q * R * 4) / HBM_BYTES_PER_S
-    t_ops = min(Q * R * W / popc_rate, Q * R * dim * 2 / INT8_TENSOR_OPS_PER_S)
-    t_bound = max(t_bytes, t_ops) * 1e3
-    t_by = "operations" if t_ops >= t_bytes else "bytes"
+    # The least work for the tile (roofline.tile_roofline): read the rows
+    # and queries once, write the tile once; operations by the cheaper route
+    # (int8 +-1 dot or popc).
+    t_roof = roofline.tile_roofline(Q, R, W, dim, clock_hz=env["clock_hz"],
+                                    n_sms=env["n_sms"])
+    t_bytes, t_ops = t_roof.t_memory, t_roof.t_compute
+    t_bound = t_roof.t_bound * 1e3
+    t_by = t_roof.bound_by
 
     params, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
     db = pipe.db
@@ -1900,10 +1911,14 @@ def _serve_line(name: str, st: dict, t: float, counts: dict) -> str:
             f"{json.dumps(used)}")
 
 
-def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds) -> dict:
+def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds,
+                   before_reload=None) -> dict:
     """Phase 16: build, search, queries, serve (resident, streamed, cached,
     cascade) and trace-report through ``python -m repro_torch.launch.oms``.
-    Returns {kernel: {path: launches}} of the in-process serve runs."""
+    ``before_reload(search args, search stdout, serve args, resident serve
+    lines, head requests file)`` runs before the hot reload grows the store
+    and returns {kernel: {path: launches}} of its own. Returns {kernel:
+    {path: launches}} of the in-process serve runs."""
     import os
     from repro_torch.data.spectra import LibraryConfig
     from repro_torch.kernels.hamming import ops as hops
@@ -1944,6 +1959,7 @@ def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds) -> 
               "--backend", "fused", "--encode-backend", "pallas",
               "--encode-batch", ENCODE_BATCH, "--max-r", cfg.max_r, *dev]
     o, _, t = oms_cli(search, "search")
+    search_out = o
     lines = o.splitlines()
     expect = result_lines(out, ds, cfg, Q)
     for want in expect:
@@ -2097,6 +2113,11 @@ def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds) -> 
         f"{int(st4['batches'])} micro-batches, host span means {parts}; streamed "
         f"trace serve.slab.search == {st5['slabs']} slabs, means {sparts}")
 
+    if before_reload is not None:
+        for k, paths in before_reload(search, search_out, serve, res_lines,
+                                      head_file).items():
+            by_path.setdefault(k, {}).update(paths)
+
     # 9. hot reload: the store grows under a streamed serve (last: it
     # changes phase 12's store, which the finally deletes)
     new_file = REQUESTS_FILE.with_name("smoke_requests_new.jsonl")
@@ -2142,12 +2163,191 @@ def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds) -> 
         f"== serve resident, the {len(rest)} after the reload == a cold start on "
         f"the grown store ({n_new} of them changed by the appended spectra); "
         f"{[x for x in err.splitlines() if 'hot-reload:' in x][0].split('] ', 1)[1]}")
-    for k in by_path:
+    for k in ("hdencode", "fused_search"):
         require(counts[k] > 0, f"serve --hot-reload launched no {k}")
         by_path[k][f"serve streamed + hot reload ({2 * HOT_RELOAD_REQUESTS} "
                    f"requests, in process)"] = counts[k]
     log(f"[cli] phase 16 in {time.perf_counter() - t_phase:.1f}s")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the autotuner and the contract analyzer
+# ---------------------------------------------------------------------------
+
+
+def _mask_times(text: str) -> str:
+    """A launcher's stdout with its clock readings masked."""
+    import re
+    return re.sub(r"\d+(\.\d+)?( ?q/s| ?sp/s|s\b|%)", "<t>", text)
+
+
+def _tune_table(table: str) -> dict:
+    """{backend: [row, ...]} of a ``tune --full-table`` table, winner first;
+    a row is {tiles, us, bound_us, frac}."""
+    import re
+    rows = {}
+    for line in table.splitlines()[1:]:
+        be, rest = line.split(None, 1)
+        m = re.match(r"(?P<tiles>.*?)\s+(?P<us>[\d.]+)\s+(?P<bound>[\d.]+)\s+"
+                     r"(?P<frac>[\d.]+)%\*?$", rest.rstrip())
+        require(m is not None, f"tune table row not understood: {line!r}")
+        rows.setdefault(be, []).append({
+            "tiles": {k: int(v) for k, v in (x.split("=") for x in m["tiles"].split())},
+            "us": float(m["us"]), "bound_us": float(m["bound"]),
+            "frac": float(m["frac"]) / 100})
+    return rows
+
+
+def _tune_stats(err: str, tag: str) -> tuple[int, int]:
+    import re
+    m = re.search(rf"\[oms {tag}\] tune-cache .*: (\d+) entries, (\d+) hits / "
+                  rf"(\d+) misses", err)
+    require(m is not None, f"{tag} --tune-cache printed no tune-cache line: {err[-2000:]}")
+    return int(m[2]), int(m[3])
+
+
+def phase_tune(torch, pipe, ds, hvs, q_pmz, q_charge, search_args, search_out,
+               serve_args, res_lines, head_file) -> dict:
+    """Phase 17, part 1 (run inside phase 16, before the hot reload grows
+    the store): the device's float32 sqrt held against the float64 one the
+    CPU path stands for; ``tune`` in process at the main path's shapes,
+    every candidate checked bit for bit against the defaults' output by the
+    sweep, the winner table with each winner against the default; then
+    ``search`` and resident ``serve`` (the first 1,024 requests) in process
+    with the winners' cache: their output equals the untuned runs' and the
+    cache hits. Returns {kernel: {path: launches}}."""
+    import contextlib
+    import io
+    import numpy as np
+    from repro_torch import tune
+    from repro_torch.core import encoding
+    from repro_torch.launch import oms
+    t_phase = time.perf_counter()
+
+    # The device path takes torch's float32 sqrt (the CPU path numpy's):
+    # both must be the correctly rounded one, the float64 sqrt rounded once.
+    inten = torch.as_tensor(ds.refs.intensity[:SQRT_CHECK_SPECTRA], device=DEVICE)
+    rand = torch.rand(1 << 24, device=DEVICE) * 1e6
+    for x in (inten, rand):
+        require(equal(encoding.sqrt_f32(x), torch.sqrt(x.double()).float()),
+                "the device's float32 sqrt is not the correctly rounded one")
+    log(f"[tune] float32 sqrt on the card == float64 sqrt rounded once on "
+        f"{inten.numel():,} library intensities and {rand.numel():,} uniform values")
+    del inten, rand
+
+    params, _, _, rk = check_blocks(torch, pipe, hvs, q_pmz, q_charge)
+    n_real = int((pipe.db.orig_idx >= 0).sum())
+    dim = pipe.cfg.dim
+    TUNE_CACHE.unlink(missing_ok=True)
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    tables = {}
+    for backends, rows in (("kernel_vpu,kernel_mxu,fused,fused_mxu", rk),
+                           ("rescore", n_real)):
+        buf, ebuf = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(ebuf):
+            oms.main(["tune", "--backends", backends, "--dim", str(dim), "--top-k", "1",
+                      "--q", str(TUNE_QUERIES), "--rows", str(rows), "--grid", "default",
+                      "--iters", str(TUNE_ITERS), "--cache", str(TUNE_CACHE),
+                      "--full-table", "--device", DEVICE])
+        log(f"[tune] `tune --backends {backends} --q {TUNE_QUERIES} --rows {rows} "
+            f"--dim {dim}` in {time.perf_counter() - t0:.1f}s: "
+            f"{ebuf.getvalue().strip().splitlines()[-1]}")
+        for line in buf.getvalue().splitlines():
+            log(f"[tune]   {line}")
+        tables.update(_tune_table(buf.getvalue()))
+    sweep_counts = {n: c.count for n, c in counters.items()}
+    require(set(tables) == set(tune.SWEPT_BACKENDS), f"tune swept {sorted(tables)}")
+    summary = {}
+    for be, rows in sorted(tables.items()):
+        default = next(r for r in rows if r["tiles"] == tune.kernel_defaults(be))
+        win = rows[0]
+        summary[be] = {"winner": win["tiles"], "winner_ms": win["us"] / 1e3,
+                       "default_ms": default["us"] / 1e3,
+                       "bound_ms": win["bound_us"] / 1e3, "fraction": win["frac"],
+                       "default_fraction": default["frac"], "candidates": len(rows)}
+        log(f"[tune] {be}: winner {win['tiles']} {win['us'] / 1e3:.4f} ms, default "
+            f"{default['tiles']} {default['us'] / 1e3:.4f} ms "
+            f"({default['us'] / win['us']:.3f}x), bound {win['bound_us'] / 1e3:.4f} ms, "
+            f"fraction {win['frac']:.4f} (default {default['frac']:.4f}); "
+            f"{len(rows)} candidates, each bit-identical to the defaults' output")
+    log(f"[tune] winners {json.dumps(summary)}")
+
+    # Tuned search and resident serve, in process: the same bytes, hits > 0.
+    try:
+        o, e, s_counts, t, _ = oms_in_process(
+            [*search_args, "--tune-cache", TUNE_CACHE], [])
+        require(_mask_times(o) == _mask_times(search_out),
+                f"search --tune-cache printed otherwise:\n{o}\nvs\n{search_out}")
+        hits, misses = _tune_stats(e, "search")
+        require(hits > 0, f"search --tune-cache: no cache hit ({misses} misses)")
+        log(f"[tune] search --tune-cache (in process, {t:.1f}s): stdout == the "
+            f"untuned search's but for its clock readings; {hits} hits / {misses} "
+            f"misses at dispatch")
+        tune.reset_runtime()
+        with open(head_file) as fin:
+            o, e, v_counts, t, _ = oms_in_process(
+                [*serve_args, "--resident", "--no-result-cache", "--tune-cache",
+                 TUNE_CACHE], fin)
+        n = STREAM_SERVE_REQUESTS
+        require(o == "".join(res_lines[:n]),
+                "serve --resident --tune-cache answered otherwise than untuned")
+        hits, misses = _tune_stats(e, "serve")
+        require(hits > 0, f"serve --tune-cache: no cache hit ({misses} misses)")
+        log(f"[tune] serve --resident --tune-cache (in process, {t:.1f}s): {n} "
+            f"responses byte-identical to the untuned serve's; {hits} hits / "
+            f"{misses} misses at dispatch")
+    finally:
+        tune.reset_runtime()
+    for k in ("hdencode", "fused_search"):
+        require(s_counts[k] > 0 and v_counts[k] > 0, f"tuned search/serve launched no {k}")
+    log(f"[tune] phase 17 (sweep, tuned search and serve) in "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    by_path = {k: {} for k in (*counters, "hdencode")}
+    for k, n in sweep_counts.items():
+        if n:
+            by_path[k]["tune sweep (in process)"] = n
+    by_path["fused_search"]["search --tune-cache (in process)"] = s_counts["fused_search"]
+    by_path["hdencode"]["search --tune-cache (in process)"] = s_counts["hdencode"]
+    by_path["fused_search"][f"serve resident --tune-cache ({STREAM_SERVE_REQUESTS:,} "
+                            f"requests, in process)"] = v_counts["fused_search"]
+    by_path["hdencode"][f"serve resident --tune-cache ({STREAM_SERVE_REQUESTS:,} "
+                        f"requests, in process)"] = v_counts["hdencode"]
+    return by_path
+
+
+def phase_analyze() -> None:
+    """Phase 17, part 2: ``analyze --imports`` on the card (every recording
+    under sync debug mode "error"); exits 0; n_checks and each
+    combination's allocator peak."""
+    from repro_torch.analysis import runner
+    t0 = time.perf_counter()
+    o, _, t = oms_cli(["analyze", "--imports", "--json", ANALYZE_REPORT,
+                       "--device", DEVICE], "analyze")
+    rep = json.loads(ANALYZE_REPORT.read_text())
+    ANALYZE_REPORT.unlink()
+    con = rep["contracts"]
+    require(rep["imports"]["ok"] and con["ok"], f"analyze failed:\n{o[-3000:]}")
+    peaks = runner.allocator_peaks(con)
+    require(len(peaks) == con["n_combinations"] - 1,
+            f"allocator peaks for {len(peaks)} of {con['n_combinations']} combinations")
+    by_target = {}
+    for c in con["combos"]:
+        for r in c["contracts"]:
+            if "allocator_bytes" in r:
+                by_target[r["target"]] = max(by_target.get(r["target"], 0),
+                                             r["allocator_bytes"])
+    log(f"[analyze] `analyze --imports --device {DEVICE}` exited 0 (process {t:.1f}s): "
+        f"{con['n_combinations']} combinations, n_checks {con['n_checks']}, "
+        f"imports {rep['imports']['modules']} modules / {rep['imports']['edges']} edges; "
+        f"{next(x for x in o.splitlines() if 'ALL CONTRACTS HOLD' in x)}")
+    log(f"[analyze] allocator peak per combination (bytes, the largest rise of "
+        f"torch.cuda.max_memory_allocated over one recorded call): {json.dumps(peaks)}")
+    log(f"[analyze] allocator peak per target (bytes): {json.dumps(by_target)}")
+    log(f"[analyze] phase 17 (analyze) in {time.perf_counter() - t0:.1f}s")
 
 
 def main() -> int:
@@ -2181,7 +2381,7 @@ def main() -> int:
     phase_fused_edges(torch)
     phase_paths(torch, pipe, ds)
     kernels = phase_times(torch, env, pipe, hvs, q_pmz, q_charge, launches, ds)
-    bucket = phase_tile_check(torch, pipe, hvs, q_pmz, q_charge)
+    bucket = phase_tile_check(torch, env, pipe, hvs, q_pmz, q_charge)
     phase_fused_mxu_batch(torch, pipe, hvs, q_pmz, q_charge)
     launches.update(phase_backends(torch, pipe, hvs, q_pmz, q_charge, out))
     phase_cascade(torch, pipe, hvs, q_pmz, q_charge, out)
@@ -2209,13 +2409,17 @@ def main() -> int:
         by_path["fused_search"].update(
             phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out))
         del spipe
-        for kernel, paths in phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz,
-                                            q_charge, out, ds).items():
+        for kernel, paths in phase_launcher(
+                torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds,
+                before_reload=lambda *a: phase_tune(torch, pipe, ds, hvs, q_pmz,
+                                                    q_charge, *a)).items():
             by_path[kernel].update(paths)
+        phase_analyze()
     finally:
         shutil.rmtree(STORE_DIR, ignore_errors=True)
         shutil.rmtree(CLI_STORE_DIR, ignore_errors=True)
-        for f in (REQUESTS_FILE, SERVE_TRACE, STREAM_TRACE, RELOAD_TRACE,
+        for f in (REQUESTS_FILE, SERVE_TRACE, STREAM_TRACE, RELOAD_TRACE, TUNE_CACHE,
+                  ANALYZE_REPORT,
                   *(REQUESTS_FILE.with_name(f"smoke_requests_{x}.jsonl")
                     for x in ("head", "twice", "new", "in_process"))):
             f.unlink(missing_ok=True)

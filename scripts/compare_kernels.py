@@ -71,8 +71,15 @@ def other_library(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(mod.build()))
     for name in ("hamming_matrix_launch", "hamming_mxu_launch", "hdencode_launch", *FUSED):
         fn = getattr(lib, name)
-        fn.argtypes, fn.restype = _build._SIGNATURES[name]
+        fn.argtypes, fn.restype = mod._SIGNATURES[name]
     return lib
+
+
+def tile_grid_args(lib) -> tuple:
+    """The tile launchers' trailing grid argument (ctas_per_sm 0, the
+    occupancy fill) where the library's launchers take one."""
+    takes = len(lib.hamming_matrix_launch.argtypes) == 8
+    return (0,) if takes else ()
 
 
 def fused_cases(libs, n_splits_fns, dev) -> dict:
@@ -179,10 +186,11 @@ def main() -> int:
             def call(k, kernel=kernel, qw=qw, r=r, outs=outs):
                 R, W = r.shape
                 args = (qw.data_ptr(), r.data_ptr(), outs[k].data_ptr(), 16, R, W)
+                grid = tile_grid_args(libs[k])
                 if kernel == "hamming_mxu":
-                    rc = libs[k].hamming_mxu_launch(*args, 32 * W, stream())
+                    rc = libs[k].hamming_mxu_launch(*args, 32 * W, *grid, stream())
                 else:
-                    rc = libs[k].hamming_matrix_launch(*args, stream())
+                    rc = libs[k].hamming_matrix_launch(*args, *grid, stream())
                 if rc:
                     raise RuntimeError(f"{k} {kernel}_launch: CUDA error {rc}")
             cases[f"{kernel} {what} 16 x {r.shape[0]} x {r.shape[1]}"] = (call, outs, True)

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+# Dependency-free registry (stdlib only) — safe at module level.
+from repro_torch.analysis.registry import declare as _declare
 from repro_torch.core import encoding
 from repro_torch.core.encoding import (Codebooks, PreprocessParams,
                                        PreprocessedSpectra)
@@ -119,3 +121,44 @@ register("oracle", ENCODE, encoding.encode_spectra)
 register("word_tiled", ENCODE, _word_tiled)
 register("pallas", ENCODE, _pallas)
 register("fused", FUSED, _fused_preprocess_encode)
+
+
+# ---------------------------------------------------------------------------
+# Contracts — the encode hot path's memory/transfer/dtype story, declared
+# next to the registrations and machine-checked by `oms.py analyze` (the
+# runner records preprocess_encode per backend; see repro_torch.analysis).
+# ---------------------------------------------------------------------------
+
+for _t in ("encode:oracle", "encode:word_tiled", "encode:pallas",
+           "encode:fused"):
+    _declare(_t, "no_host_transfer")
+    _declare(_t, "dtype_stability")
+
+# Largest output of one encode chunk, over the context (batch = spectra per
+# chunk, peaks, dim, word_tile, n_bins). The oracle is ALLOWED its
+# (B, P, W, 32) unpacked-bit tensor — that is what makes it the oracle; the
+# word-tiled schedules stay word-tile-bounded: (B, P, WT, 32) int32. They
+# also slice the resident ID codebook into word tiles — a view of an INPUT,
+# so the codebook's own footprint is part of every bound.
+
+
+def _codebook_bytes(c) -> int:
+    return c["n_bins"] * c["n_words"] * 4
+
+
+def _word_tile_bound(c):
+    return max(c["batch"] * c["peaks"] * c["word_tile"] * 32 * 4,
+               _codebook_bytes(c))
+
+
+_declare("encode:oracle", "peak_intermediate",
+         bound=lambda c: max(c["batch"] * c["peaks"] * c["dim"] * 4,
+                             _codebook_bytes(c)),
+         note="reference schedule: full (B, P, D) unpacked bits")
+for _t in ("encode:word_tiled", "encode:fused"):
+    _declare(_t, "peak_intermediate", bound=_word_tile_bound,
+             note="word-tiled schedule: (B, P, WT*32) unpacked-bit tile "
+                  "or the word-tiled codebook view")
+_declare("encode:pallas", "peak_intermediate", bound=_word_tile_bound,
+         note="hdencode CUDA kernel: bit-sliced counters in registers; "
+              "outside-kernel intermediates stay tile-bounded")

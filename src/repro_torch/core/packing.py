@@ -21,19 +21,16 @@ def n_words(dim: int) -> int:
     return dim // WORD_BITS
 
 
-def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> int32 tensor with the same bit pattern."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
-
-
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """Pack (..., D) {0,1} bits into (..., D//32) int32 words (LSB-first)."""
     d = bits.shape[-1]
     w = n_words(d)
-    b = bits.to(torch.int64).reshape(*bits.shape[:-1], w, WORD_BITS)
-    weights = torch.ones((), dtype=torch.int64, device=bits.device) << torch.arange(
-        WORD_BITS, dtype=torch.int64, device=bits.device)
-    return to_int32_bits((b * weights).sum(dim=-1))
+    b = bits.to(torch.int32).reshape(*bits.shape[:-1], w, WORD_BITS)
+    # 1 << b in int32: bit 31 weighs -2**31, so the sum of distinct bits is
+    # the word's two's-complement value and no partial sum overflows.
+    weights = torch.ones((), dtype=torch.int32, device=bits.device) << torch.arange(
+        WORD_BITS, dtype=torch.int32, device=bits.device)
+    return (b * weights).sum(dim=-1, dtype=torch.int32)
 
 
 def unpack_bits(words: torch.Tensor, dim: int | None = None) -> torch.Tensor:

@@ -10,10 +10,11 @@ with -1 for empty ranks. Exhaustive mode (the HyperOMS baseline) scans the
 whole DB from row 0.
 
 The per-block start rows are computed on the device with the reference's
-float32 key arithmetic. A ``fused`` backend then covers every query block
-in one call; ``matrix`` backends run block by block through the plain
-fused version (``kernels/hamming/ref.py``), whose ``dual_window_topk`` is
-the reference's ``_find_topk_dual``.
+float32 key arithmetic and stay there. A ``fused`` backend then covers
+every query block in one call; ``matrix`` backends run block by block
+through the plain fused version (``kernels/hamming/ref.py``), whose
+``dual_window_topk`` is the reference's ``_find_topk_dual``, each block
+gathering its rows by a device index.
 
 With ``prefix_words > 0`` the scan runs as the dimension cascade: a seed
 pass rescoring rows near each precursor sets exact per-query thresholds, a
@@ -144,10 +145,6 @@ def _search_sorted_padded(db: ReferenceDB, q_hvs, q_pmz, q_charge, *,
 # harder pruning that may drop true winners.
 
 _NEG_THRESHOLD = -(1 << 30)     # "no threshold yet": everything in-window survives
-# Floor of the survivor-set padding buckets: the reference's
-# repro.tune.promoted.DEFAULT_ROW_BUCKET_LO (per-device tuning not ported).
-DEFAULT_ROW_BUCKET_LO = 64
-
 
 def prefix_margin_bits(params: SearchParams, dim: int) -> int:
     """Effective stage-A slack in bits (the exact bound unless overridden)."""
@@ -173,17 +170,21 @@ def _prefix_flags(db: ReferenceDB, prefix_hvs, q_hvs_p, q_pmz, q_charge,
     rk = scan_rows_per_block(db, p)
     tile = backends_mod.hamming_tile_fn(p.backend)
     starts = block_start_rows(db, p, q_pmz, q_charge)
-    flags = torch.zeros((db.n_rows,), dtype=torch.bool, device=db.device)
-    for b, s in enumerate(starts.tolist()):
-        qs, rs = slice(b * QB, (b + 1) * QB), slice(s, s + rk)
-        ub = (pdim - tile(q_hvs_p[qs], prefix_hvs[rs], pdim)) + margin
+    # Keep counts per row, gathered and added by device indices (the start
+    # rows never go to the host).
+    hits = torch.zeros((db.n_rows,), dtype=torch.int32, device=db.device)
+    for b in range(starts.shape[0]):
+        qs = slice(b * QB, (b + 1) * QB)
+        rows, r_p, pmz_b, charge_b = href.scan_rows(starts[b], rk, prefix_hvs,
+                                                    db.pmz, db.charge)
+        ub = (pdim - tile(q_hvs_p[qs], r_p, pdim)) + margin
         std_m, open_m = href.window_masks(
-            q_pmz[qs], db.pmz[rs], q_charge[qs], db.charge[rs],
+            q_pmz[qs], pmz_b, q_charge[qs], charge_b,
             ppm_tol=p.ppm_tol, open_tol_da=p.open_tol_da)
         keep = ((std_m & (ub >= thr_std[qs, None]))
                 | (open_m & (ub >= thr_open[qs, None])))
-        flags[rs] |= keep.any(dim=0)
-    return flags
+        hits.index_add_(0, rows, keep.any(dim=0).to(torch.int32))
+    return hits > 0
 
 
 def _rescore_rows_padded(r_hvs, r_rows, r_pmz, r_charge, q_hvs, q_pmz,
@@ -241,9 +242,13 @@ def plan_seed_rows(row_pmz: np.ndarray, row_charge: np.ndarray,
     return np.flatnonzero(mark).astype(np.int64)
 
 
-def row_bucket(n: int, *, lo: int = DEFAULT_ROW_BUCKET_LO) -> int:
-    """Power-of-two padding bucket (floor ``lo``) for a candidate-set size,
-    so the rescore sees a bounded family of shapes."""
+def row_bucket(n: int, *, lo: int | None = None, device=None) -> int:
+    """Power-of-two padding bucket for a candidate-set size, so the rescore
+    sees a bounded family of shapes. The floor ``lo`` defaults to the tuned
+    per-device base of ``device`` (``repro_torch.tune.row_bucket_lo``)."""
+    if lo is None:
+        from repro_torch import tune
+        lo = tune.row_bucket_lo(device)
     b = lo
     while b < max(n, 1):
         b <<= 1
@@ -263,7 +268,8 @@ def pad_candidate_rows(rows: np.ndarray, bucket: int):
 
 def _gather_rows(db: ReferenceDB, rows_np: np.ndarray):
     """(r_hvs, r_rows, r_pmz, r_charge) of a bucket-padded candidate set."""
-    rows_pad, valid = pad_candidate_rows(rows_np, row_bucket(rows_np.shape[0]))
+    rows_pad, valid = pad_candidate_rows(
+        rows_np, row_bucket(rows_np.shape[0], device=db.device))
     rows_t = torch.from_numpy(rows_pad).to(db.device)
     valid_t = torch.from_numpy(valid).to(db.device)
     return (db.hvs[rows_t],
@@ -328,9 +334,9 @@ def _prefix_search_padded(db: ReferenceDB, qh, qp, qc, *, params: SearchParams,
     if stats is not None:
         t3 = _stage_clock(dev)
         stats.update(seed_rows=int(seed_rows.size),
-                     seed_bucket=row_bucket(int(seed_rows.size)),
+                     seed_bucket=row_bucket(int(seed_rows.size), device=dev),
                      survivors=int(surv.size),
-                     survivor_bucket=row_bucket(int(surv.size)),
+                     survivor_bucket=row_bucket(int(surv.size), device=dev),
                      seed_s=t1 - t0, prefix_s=t2 - t1, rescore_s=t3 - t2)
     return out
 

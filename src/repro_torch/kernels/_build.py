@@ -30,6 +30,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# Kernel builds started by this process (``build`` compiling, not reusing a
+# finished library); the analyzer's recompile_guard reads it.
+builds = 0
+# The op recorder of ``repro_torch.analysis.op_walk`` while one is active:
+# a kernel wrapper call then shows to it as one op (see ``kernel_op``).
+region_hook = None
+
+
+def kernel_op(name: str):
+    """Decorator of a kernel wrapper: while an op recorder is active, the
+    call is one recorded op named ``name`` whose outputs are the wrapper's
+    outputs — on the CPU the plain version's own tiles stay inside it, as a
+    Pallas kernel's VMEM tiles stay inside its ``pallas_call``. Without a
+    recorder it adds nothing to the call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            hook = region_hook
+            if hook is None:
+                return fn(*args, **kwargs)
+            return hook.kernel_call(name, fn, args, kwargs)
+        return wrapper
+    return deco
+
+
 class LaunchCounter:
     """Plain launch count of one kernel wrapper: the wrapper adds one where
     it launches its kernel and nowhere else."""
@@ -79,6 +104,8 @@ def build(log=None) -> Path:
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
+    global builds
+    builds += 1
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     # Build in a private directory and move the library into place with one
@@ -134,10 +161,10 @@ _SIGNATURES = {
     "fused_search_launch": ([_P] * 12 + [_I] * 7 + [_F] * 3 + [_P], _I),
     # the same arguments; requires dim == 32 * W
     "fused_search_mxu_launch": ([_P] * 12 + [_I] * 7 + [_F] * 3 + [_P], _I),
-    # q, r, out, Q, R, W, stream
-    "hamming_matrix_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
-    # q, r, out, Q, R, W, dim, stream
-    "hamming_mxu_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # q, r, out, Q, R, W, ctas_per_sm, stream
+    "hamming_matrix_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # q, r, out, Q, R, W, dim, ctas_per_sm, stream
+    "hamming_mxu_launch": ([_P] * 3 + [_I] * 5 + [_P], _I),
 }
 
 

@@ -152,19 +152,21 @@ hamming_matrix_kernel(const uint32_t* __restrict__ q, const uint32_t* __restrict
 
 template <int VEC>
 cudaError_t launch(const void* q, const void* r, void* out, int Q, int R, int W,
-                   size_t smem, cudaStream_t st) {
+                   int ctas_per_sm, size_t smem, cudaStream_t st) {
   cudaError_t e = cudaSuccess;
   if (smem > 48 * 1024)
     e = cudaFuncSetAttribute(hamming_matrix_kernel<VEC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
-  // CTAs: enough to fill every SM at the kernel's occupancy, never more
-  // than there are n8 tiles for.
-  int dev = 0, n_sms = 0, per_sm = 0;
+  // CTAs: enough to fill every SM at the kernel's occupancy (or at
+  // ctas_per_sm CTAs an SM when that is > 0), never more than there are n8
+  // tiles for. The CTAs stride over the n8 tiles, so the output is the
+  // same at every grid.
+  int dev = 0, n_sms = 0, per_sm = ctas_per_sm;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
+  if (e == cudaSuccess && ctas_per_sm == 0)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, hamming_matrix_kernel<VEC>, THREADS, smem);
   if (e != cudaSuccess) return e;
@@ -180,15 +182,17 @@ cudaError_t launch(const void* q, const void* r, void* out, int Q, int R, int W,
 }  // namespace
 
 // q (Q, W), r (R, W) uint32, out (Q, R) int32, all contiguous on the
-// device. Launches on `stream`; returns cudaGetLastError().
+// device; ctas_per_sm 0 fills the SMs at the kernel's occupancy. Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int hamming_matrix_launch(const void* q, const void* r, void* out,
-                                     int Q, int R, int W, void* stream) {
-  if (Q < 1 || R < 1 || W < 1 || (Q + QT - 1) / QT > 65535)
+                                     int Q, int R, int W, int ctas_per_sm,
+                                     void* stream) {
+  if (Q < 1 || R < 1 || W < 1 || ctas_per_sm < 0 || (Q + QT - 1) / QT > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t wp = ((size_t)W + STEP_WORDS - 1) / STEP_WORDS * STEP_WORDS;
   const size_t smem = sizeof(uint32_t) * QT * wp;
   const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0;
-  return static_cast<int>(vec4 ? launch<4>(q, r, out, Q, R, W, smem, st)
-                               : launch<1>(q, r, out, Q, R, W, smem, st));
+  return static_cast<int>(vec4 ? launch<4>(q, r, out, Q, R, W, ctas_per_sm, smem, st)
+                               : launch<1>(q, r, out, Q, R, W, ctas_per_sm, smem, st));
 }

@@ -41,13 +41,29 @@ launches = _build.LaunchCounter()           # fused_search
 matrix_launches = _build.LaunchCounter()    # hamming_matrix
 
 
-def n_splits_for(n_tiles: int, rk: int, n_sms: int) -> int:
-    """CTAs per group of GROUP query tiles: FUSED_WAVES waves of one CTA per
-    SM even for a handful of tiles, but never fewer than MIN_SPLIT_ROWS
-    rows of a tile's scan per CTA."""
+def n_splits_for(n_tiles: int, rk: int, n_sms: int, *,
+                 waves: int = FUSED_WAVES,
+                 min_split_rows: int = MIN_SPLIT_ROWS) -> int:
+    """CTAs per group of GROUP query tiles: ``waves`` waves of one CTA per
+    SM even for a handful of tiles, but never fewer than ``min_split_rows``
+    rows of a tile's scan per CTA. The tunable launch parameters of the
+    fused kernels (``repro_torch.tune``); the split merge makes the output
+    bit-identical at every value."""
     n_groups = -(-n_tiles // GROUP)
-    want = -(-FUSED_WAVES * n_sms // n_groups)
-    return max(1, min(want, -(-rk // MIN_SPLIT_ROWS)))
+    want = -(-waves * n_sms // n_groups)
+    return max(1, min(want, -(-rk // min_split_rows)))
+
+
+def fused_partial_bytes(n_queries: int, q_block: int, rk: int, k: int,
+                        n_sms: int, *, waves: int = FUSED_WAVES,
+                        min_split_rows: int = MIN_SPLIT_ROWS) -> int:
+    """Bytes of the fused wrappers' largest allocation, the split kernel's
+    ``partial`` buffer (n_tiles, n_splits, 2 * QT, k) int64, for a batch of
+    ``n_queries`` sorted/padded queries in blocks of ``q_block``."""
+    n_tiles = n_queries // q_block * (-(-q_block // QT))
+    n_splits = n_splits_for(n_tiles, rk, n_sms, waves=waves,
+                            min_split_rows=min_split_rows)
+    return n_tiles * n_splits * 2 * QT * k * 8
 
 
 def group_spans(tile_start: torch.Tensor, rk: int, n_rows: int) -> torch.Tensor:
@@ -77,22 +93,26 @@ def fused_smem_bytes(G: int, W: int, k: int, scratch_per_tile: int = 0) -> int:
     return 4 * G * QT * wp + 8 * G * 2 * QT * k + FUSED_RING_BYTES + scratch_per_tile * G
 
 
-def hamming_matrix(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+@_build.kernel_op("hamming_matrix")
+def hamming_matrix(q: torch.Tensor, r: torch.Tensor, *,
+                   ctas_per_sm: int = 0) -> torch.Tensor:
     """All-pairs Hamming: q (Q, W) x r (R, W) int32 words -> (Q, R) int32.
     Rows wider than TILE_W_CHUNK words run as word chunks (one launch each,
-    tiles summed); more than TILE_Q_CHUNK queries as query batches."""
+    tiles summed); more than TILE_Q_CHUNK queries as query batches.
+    ``ctas_per_sm`` sets the grid (0: the kernel's occupancy fill)."""
     if q.device.type == "cpu":
         return ref.hamming_matrix(q, r)
-    dev = check_pair("hamming_matrix", q, r)
+    check_pair("hamming_matrix", q, r)
     W = q.shape[1]
     if W > TILE_W_CHUNK:
         out = None
         for w0 in range(0, W, TILE_W_CHUNK):
             part = hamming_matrix(q[:, w0:w0 + TILE_W_CHUNK].contiguous(),
-                                  r[:, w0:w0 + TILE_W_CHUNK].contiguous())
+                                  r[:, w0:w0 + TILE_W_CHUNK].contiguous(),
+                                  ctas_per_sm=ctas_per_sm)
             out = part if out is None else out.add_(part)
         return out
-    return launch_tile("hamming_matrix", matrix_launches, q, r)
+    return launch_tile("hamming_matrix", matrix_launches, q, r, ctas_per_sm)
 
 
 def launch_tile(kernel: str, counter: _build.LaunchCounter, q, r, *extra):
@@ -133,15 +153,18 @@ def check_pair(kernel: str, q: torch.Tensor, r: torch.Tensor) -> torch.device:
     return dev
 
 
+@_build.kernel_op("fused_search")
 def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
                  *, q_block: int, rk: int, dim: int, k: int,
-                 ppm_tol: float = 20.0, open_tol_da: float = 75.0):
+                 ppm_tol: float = 20.0, open_tol_da: float = 75.0,
+                 waves: int = FUSED_WAVES, min_split_rows: int = MIN_SPLIT_ROWS):
     """Dual-window top-k for every query block in one launch.
 
     q_hvs (Qp, W) int32, q_pmz (Qp,) float32, q_charge (Qp,) int32 are the
     sorted, q_block-padded queries; r_* the whole reference DB; block b
     scans rows ``[start_rows[b], start_rows[b] + rk)``. Returns (std_sim,
     std_row, open_sim, open_row), each (Qp, k) int32 with global rows or -1.
+    ``waves`` and ``min_split_rows`` set the split count (:func:`n_splits_for`).
     """
     if q_hvs.device.type == "cpu":
         return ref.fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge,
@@ -150,12 +173,14 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
     return launch_fused("fused_search", launches, q_hvs, q_pmz, q_charge,
                         r_hvs, r_pmz, r_charge, start_rows, q_block=q_block,
                         rk=rk, dim=dim, k=k, ppm_tol=ppm_tol,
-                        open_tol_da=open_tol_da)
+                        open_tol_da=open_tol_da, waves=waves,
+                        min_split_rows=min_split_rows)
 
 
 def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
                  q_charge, r_hvs, r_pmz, r_charge, start_rows, *, q_block: int,
                  rk: int, dim: int, k: int, ppm_tol: float, open_tol_da: float,
+                 waves: int = FUSED_WAVES, min_split_rows: int = MIN_SPLIT_ROWS,
                  scratch_per_tile: int = 0):
     """Validate, pad and launch ``<kernel>_launch`` — any launcher with the
     fused_search C signature — on CUDA tensors; ``counter`` counts it.
@@ -207,7 +232,8 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
     tile_start = start_rows.repeat_interleave(per_block // QT)
     n_tiles = tile_start.shape[0]
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = n_splits_for(n_tiles, rk, n_sms)
+    n_splits = n_splits_for(n_tiles, rk, n_sms, waves=waves,
+                            min_split_rows=min_split_rows)
 
     partial = torch.empty((n_tiles, n_splits, 2 * QT, k), dtype=torch.int64,
                           device=dev)

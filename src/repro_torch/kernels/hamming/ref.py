@@ -69,16 +69,36 @@ def fused_search(q_hvs, q_pmz, q_charge, r_hvs, r_pmz, r_charge, start_rows,
                  ppm_tol: float = 20.0, open_tol_da: float = 75.0, tile_fn=None):
     """All query blocks: block b (rows ``[b*q_block, (b+1)*q_block)`` of the
     sorted/padded queries) scans DB rows ``[start_rows[b], start_rows[b] +
-    rk)``. Returns (std_sim, std_row, open_sim, open_row), each (Qp, k)
-    int32 with GLOBAL rows (or -1)."""
+    rk)``, cut at the last row. Returns (std_sim, std_row, open_sim,
+    open_row), each (Qp, k) int32 with GLOBAL rows (or -1).
+
+    The start rows stay on the device: each block gathers its rows by a
+    device index (:func:`scan_rows`), so the loop never waits for the
+    device to hand a start row to the host."""
     outs = []
-    for b, s in enumerate(start_rows.tolist()):
+    for b in range(start_rows.shape[0]):
         qs = slice(b * q_block, (b + 1) * q_block)
-        rs = slice(s, s + rk)
+        s = start_rows[b]
+        _, r_b, pmz_b, charge_b = scan_rows(s, rk, r_hvs, r_pmz, r_charge)
         ss, sa, os_, oa = fused_search_block(
-            q_hvs[qs], r_hvs[rs], q_pmz[qs], r_pmz[rs], q_charge[qs],
-            r_charge[rs], dim=dim, k=k, ppm_tol=ppm_tol,
-            open_tol_da=open_tol_da, tile_fn=tile_fn)
+            q_hvs[qs], r_b, q_pmz[qs], pmz_b, q_charge[qs], charge_b,
+            dim=dim, k=k, ppm_tol=ppm_tol, open_tol_da=open_tol_da,
+            tile_fn=tile_fn)
         outs.append((ss, torch.where(ss >= 0, s + sa, -1),
                      os_, torch.where(os_ >= 0, s + oa, -1)))
     return tuple(torch.cat(col) for col in zip(*outs))
+
+
+def scan_rows(start: torch.Tensor, rk: int, r_hvs, r_pmz, r_charge):
+    """Rows ``[start, start + rk)`` of the reference arrays, ``start`` a 0-d
+    device tensor: the (rk,) row index, then (rk, W) words, (rk,) pmz and
+    charge gathered by it. Rows past the last one repeat it with a PAD pmz,
+    which no window admits, so a block near the end scans as its cut slice
+    would."""
+    n = r_pmz.shape[0]
+    idx = start.to(torch.int64) + torch.arange(rk, device=r_pmz.device)
+    inside = idx < n
+    idx = idx.clamp_max(n - 1)
+    return (idx, r_hvs.index_select(0, idx),
+            torch.where(inside, r_pmz.index_select(0, idx), PAD_PMZ),
+            r_charge.index_select(0, idx))

@@ -15,6 +15,7 @@ from repro_torch.kernels.hdencode import ref
 launches = _build.LaunchCounter()
 
 
+@_build.kernel_op("hdencode")
 def hdencode(bins: torch.Tensor, levels: torch.Tensor, mask: torch.Tensor,
              id_hvs: torch.Tensor, level_hvs: torch.Tensor,
              tiebreak: torch.Tensor) -> torch.Tensor:

@@ -20,13 +20,15 @@ def select_topk(s: torch.Tensor, k: int):
     """
     s = s.clone()
     rows = torch.arange(s.shape[0], device=s.device)
+    # A device scalar: a Python -2 would be copied from the host each round.
+    consumed = s.new_full((), -2)
     sims_out, col_out = [], []
     for _ in range(k):
         arg = torch.argmax(s, dim=1)
         best = torch.clamp_min(s[rows, arg], -1)
         sims_out.append(best)
         col_out.append(torch.where(best >= 0, arg.to(torch.int32), -1))
-        s[rows, arg] = -2
+        s.index_put_((rows, arg), consumed)
     return torch.stack(sims_out, dim=1), torch.stack(col_out, dim=1)
 
 

@@ -18,6 +18,16 @@ Entry points:
     ``trace_event`` JSON or JSON-lines), validate it against the export
     schema, and print the per-stage rollup table (count, total wall time,
     share, deterministic p50/p95/p99, summed rows/bytes);
+  * ``tune``    — per-device launch-parameter sweep: benchmark the tunable
+    backends' run-time parameters (the fused kernels' split count, the
+    tile kernels' grid, the rescore bucket floor), print the winner table
+    and persist the winners to a JSON cache that ``search``/``serve``
+    load via ``--tune-cache`` (or the ``REPRO_TUNE_CACHE`` env var);
+    every value gives bit-identical results, only the time differs;
+  * ``analyze`` — contract analysis: run every hot-path combination once
+    at smoke shapes under the op recorder and check the declared
+    contracts (``--imports`` adds the import-graph check); exits nonzero
+    on any violation.
   * legacy one-shot (no subcommand): in-memory ingest + search.
 
     PYTHONPATH=src python -m repro_torch.launch.oms build --store /tmp/oms \\
@@ -30,12 +40,10 @@ Entry points:
     PYTHONPATH=src python -m repro_torch.launch.oms --refs 8192 --queries 512 \\
         [--backend vpu|mxu|kernel_vpu|kernel_mxu|fused|fused_mxu|fused_xla]
 
-``build``, ``search``, ``serve`` and the one-shot form take ``--device``
-(default ``cuda``, which raises without a GPU; ``cpu`` runs the kernels'
-plain PyTorch versions), the port's counterpart of ``JAX_PLATFORMS``.
-``tune``, ``analyze`` and ``--tune-cache`` parse as in the reference but
-are not ported yet (ROADMAP queue 1 items 6 and 7): used, they exit
-nonzero and say so.
+``build``, ``search``, ``serve``, ``tune``, ``analyze`` and the one-shot
+form take ``--device`` (default ``cuda``, which raises without a GPU;
+``cpu`` runs the kernels' plain PyTorch versions), the port's counterpart
+of ``JAX_PLATFORMS``.
 
 ``search``, ``serve`` and the legacy one-shot accept ``--cascade``
 (``--narrow-tol-da``, ``--no-stage1``): stage 1 is a narrow-window scan that
@@ -83,19 +91,6 @@ from repro_torch.core import backends, encode_backends
 from repro_torch.core.blocking import candidate_block_stats
 from repro_torch.core.pipeline import OMSConfig, OMSPipeline
 from repro_torch.data.spectra import LibraryConfig, make_dataset
-
-# The reference's tune sweep names (``repro.tune.SWEPT_BACKENDS`` and
-# ``repro.tune.sweep.GRIDS``), so ``tune`` parses as there.
-_TUNE_BACKENDS = ("kernel_vpu", "kernel_mxu", "fused", "fused_mxu", "rescore")
-_TUNE_GRIDS = ("default", "tiny")
-_TUNE_ENV = "REPRO_TUNE_CACHE"
-
-
-def _not_ported(what: str, item: str) -> None:
-    raise SystemExit(f"[oms] {what} is not ported to repro_torch yet "
-                     f"(ROADMAP queue 1 item {item}); run it with "
-                     f"`python -m repro.launch.oms`")
-
 
 def _dataset_args(ap, refs_default=8192):
     ap.add_argument("--refs", type=int, default=refs_default)
@@ -145,17 +140,27 @@ def _serving_args(ap):
 
 def _tune_args(ap):
     ap.add_argument("--tune-cache", default=None, metavar="PATH",
-                    help="tile-winner cache JSON of the reference's `tune`; "
-                         "not ported (ROADMAP queue 1 item 6): exits nonzero")
+                    help="launch-parameter winner cache JSON written by "
+                         "`oms.py tune`; tuned values override the kernel "
+                         "defaults at dispatch (env REPRO_TUNE_CACHE works "
+                         "too)")
 
 
 def _apply_tune_cache(args) -> None:
-    """The tune cache (flag or environment variable) is not ported: refuse
-    it rather than ignore it."""
     if getattr(args, "tune_cache", None):
-        _not_ported("--tune-cache", "6, tune")
-    if os.environ.get(_TUNE_ENV):
-        _not_ported(f"the {_TUNE_ENV} tune cache", "6, tune")
+        from repro_torch import tune
+        tune.set_cache_path(args.tune_cache)
+
+
+def _tune_stats_line(tag: str) -> None:
+    """One stderr line on whether a configured tune cache was picked up."""
+    from repro_torch import tune
+    st = tune.cache_stats()
+    if st["path"] is None:
+        return
+    print(f"[{tag}] tune-cache {st['path']}: {st['entries']} entries, "
+          f"{st['hits']} hits / {st['misses']} misses at dispatch",
+          file=sys.stderr, flush=True)
 
 
 def _prefix_args(ap):
@@ -324,6 +329,7 @@ def cmd_search(argv) -> None:
         args.refs = pipe.n_targets
     ds = _dataset(args)
     _serve(pipe, ds, args)
+    _tune_stats_line("oms search")
 
 
 def cmd_queries(argv) -> None:
@@ -672,6 +678,7 @@ def cmd_serve(argv) -> None:
                    if tracer.n_dropped else "")
         print(f"[oms serve] trace: {n_ev} spans -> {args.trace}{dropped}",
               file=sys.stderr)
+    _tune_stats_line("oms serve")
 
 
 def cmd_trace_report(argv) -> None:
@@ -702,22 +709,71 @@ def cmd_trace_report(argv) -> None:
 
 
 def cmd_analyze(argv) -> None:
-    """Static contract analysis: parses as in the reference; not ported."""
+    """Contract analysis: record every hot-path combination at smoke shapes,
+    check every declared contract, exit nonzero on violation."""
+    from repro_torch.analysis import imports as imports_mod
+    from repro_torch.analysis import runner as runner_mod
+
     ap = argparse.ArgumentParser(prog="repro_torch.launch.oms analyze")
     ap.add_argument("--json", default=None, metavar="PATH",
                     help="write the full JSON report here ('-' for stdout)")
     ap.add_argument("--imports", action="store_true",
-                    help="also run the import-graph check")
+                    help="also run the import-graph check (cycle-free "
+                         "package, dependency-free leaf modules)")
     ap.add_argument("--imports-only", action="store_true",
-                    help="run ONLY the import-graph check")
+                    help="run ONLY the import-graph check (fast, runs "
+                         "nothing on the device)")
     ap.add_argument("--no-recompile", action="store_true",
-                    help="skip the runtime recompile-guard pass")
-    ap.parse_args(argv)
-    _not_ported("analyze", "7, analysis")
+                    help="skip the runtime recompile_guard pass (faster)")
+    _device_args(ap)
+    args = ap.parse_args(argv)
+
+    src_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    report: dict = {}
+    ok = True
+
+    if args.imports or args.imports_only:
+        imp = imports_mod.check_imports(src_root, "repro_torch")
+        report["imports"] = imp
+        ok = ok and imp["ok"]
+        status = "OK" if imp["ok"] else "FAIL"
+        print(f"[analyze] imports: {imp['modules']} modules, "
+              f"{imp['edges']} edges — {status}")
+        for cyc in imp["cycles"]:
+            print(f"  FAIL import cycle: {' -> '.join(cyc)}")
+        for leaf, deps in imp["leaf_violations"].items():
+            print(f"  FAIL leaf module {leaf} imports: {', '.join(deps)}")
+
+    if not args.imports_only:
+        contracts_report = runner_mod.run(
+            with_recompile=not args.no_recompile,
+            device=resolve_device(args.device))
+        report["contracts"] = contracts_report
+        ok = ok and contracts_report["ok"]
+        print(runner_mod.summarize(contracts_report))
+
+    if args.json == "-":
+        json.dump(report, sys.stdout, indent=2, sort_keys=True)
+        sys.stdout.write("\n")
+    elif args.json:
+        with open(args.json, "w") as f:
+            json.dump(report, f, indent=2, sort_keys=True)
+        print(f"[analyze] report written to {args.json}")
+
+    if not ok:
+        raise SystemExit(1)
 
 
 def cmd_tune(argv) -> None:
-    """Per-device tile sweep: parses as in the reference; not ported."""
+    """Per-device launch-parameter sweep: time every candidate of the
+    tunable backends at the given shapes, print the winner table, persist
+    winners to the JSON cache that dispatch loads."""
+    import subprocess
+
+    from repro_torch import tune
+    from repro_torch.tune import sweep
+
     ap = argparse.ArgumentParser(prog="repro_torch.launch.oms tune")
     ap.add_argument("--dim", type=int, default=4096, help="HV width (bits)")
     ap.add_argument("--top-k", type=int, default=1,
@@ -725,22 +781,60 @@ def cmd_tune(argv) -> None:
     ap.add_argument("--q", type=int, default=16,
                     help="query rows per hot call (q_block-sized)")
     ap.add_argument("--rows", type=int, default=1024,
-                    help="reference rows per hot call")
-    ap.add_argument("--backends", default=",".join(_TUNE_BACKENDS),
+                    help="reference rows per hot call (scanned rows of a "
+                         "query block / rescore candidates)")
+    ap.add_argument("--backends", default=",".join(tune.SWEPT_BACKENDS),
                     help="comma-separated subset of: "
-                         + ", ".join(_TUNE_BACKENDS))
-    ap.add_argument("--grid", default="default", choices=_TUNE_GRIDS)
+                         + ", ".join(tune.SWEPT_BACKENDS))
+    ap.add_argument("--grid", default="default", choices=sorted(sweep.GRIDS),
+                    help="'tiny' is the test grid")
     ap.add_argument("--iters", type=int, default=3,
                     help="timed repeats per candidate (median kept)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cache", default=None, metavar="PATH",
-                    help="winner cache JSON to merge into")
+                    help="winner cache JSON to merge into (default: "
+                         "$REPRO_TUNE_CACHE or ./tune_cache.json)")
     ap.add_argument("--table", default=None, metavar="PATH",
                     help="also write the winner table here")
     ap.add_argument("--full-table", action="store_true",
                     help="print every swept candidate, not just the winners")
-    ap.parse_args(argv)
-    _not_ported("tune", "6, tune")
+    _device_args(ap)
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+
+    swept = [b.strip() for b in args.backends.split(",") if b.strip()]
+    for be in swept:
+        if be not in tune.SWEPT_BACKENDS:
+            ap.error(f"unknown backend {be!r}; tunable: "
+                     + ", ".join(tune.SWEPT_BACKENDS))
+    cache_path = args.cache or tune.cache_path() or "tune_cache.json"
+    try:
+        rev = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                             capture_output=True, text=True,
+                             timeout=10).stdout.strip()
+    except Exception:
+        rev = ""
+
+    t0 = time.perf_counter()
+    results = sweep.run_sweeps(swept, dim=args.dim, k=args.top_k,
+                               q_rows=args.q, r_rows=args.rows,
+                               grid=args.grid, iters=args.iters,
+                               seed=args.seed, device=device)
+    dt = time.perf_counter() - t0
+    sweep.save_winners(cache_path, results, dim=args.dim, k=args.top_k,
+                       q_rows=args.q, r_rows=args.rows, git_rev=rev,
+                       device=device)
+
+    n_cand = sum(len(r) for r in results.values())
+    table = sweep.format_table(results, winners_only=not args.full_table)
+    print(table)
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write(table + "\n")
+    print(f"[oms tune] device={tune.device_kind(device)} dim={args.dim} "
+          f"k={args.top_k} q={args.q} rows={args.rows} grid={args.grid}: "
+          f"{n_cand} candidates over {len(swept)} backends in {dt:.1f}s; "
+          f"winners -> {cache_path}", file=sys.stderr)
 
 
 def cmd_oneshot(argv) -> None:

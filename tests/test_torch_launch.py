@@ -3,8 +3,10 @@ store: ``queries`` output and ``build`` shards byte-equal; ``serve`` stdout
 byte-identical, resident and streamed, with the result cache on and off,
 with ``--cascade``, with malformed lines and a past-deadline request; the
 non-timing lines of ``search`` and the one-shot form equal; ``--device``
-unset raises without a GPU; ``tune``, ``analyze`` and ``--tune-cache``
-exit nonzero naming their ROADMAP item.
+unset raises without a GPU; ``tune --grid tiny`` writes a cache the
+reference loads, ``analyze --imports`` exits 0, and ``search`` / ``serve``
+answer the same with ``--tune-cache`` (or ``REPRO_TUNE_CACHE``) as
+without it, reading the cache at dispatch.
 
 The port's synthetic data comes from numpy draws, the reference's from
 ``jax.random``, so both launchers are given the reference's dataset (its
@@ -227,23 +229,88 @@ def test_device_unset_raises_without_gpu(monkeypatch, cmd, tmp_path):
     assert not os.listdir(tmp_path)           # nothing was written
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["tune", "--grid", "tiny"], "6, tune"),
-    (["analyze", "--imports"], "7, analysis"),
-    (["search", "--store", "s", "--tune-cache", "t.json"], "6, tune"),
-    (["serve", "--store", "s", "--tune-cache", "t.json"], "6, tune"),
-])
-def test_unported_subcommands_exit_naming_their_item(argv, item):
-    with pytest.raises(SystemExit) as e:
-        _run(port_oms, argv)
-    assert f"ROADMAP queue 1 item {item}" in str(e.value.code)
+def _tune_cache(path) -> str:
+    """A "cpu"-keyed cache: split parameters for the fused backend at the
+    tests' shapes and a rescore bucket floor of 128 (the default is 64)."""
+    from repro_torch.tune import cache as tune_cache
+    c = tune_cache.TuneCache()
+    c.put(device_kind="cpu", backend="fused", dim=512, k=1,
+          shape_bucket=tune_cache.shape_bucket(8, 1024),
+          tiles={"waves": 1, "min_split_rows": 256})
+    c.put(device_kind="cpu", backend="rescore", dim=0, k=0,
+          shape_bucket=tune_cache.shape_bucket(0, 0), tiles={"row_bucket": 128})
+    c.save(path)
+    return str(path)
 
 
-def test_tune_cache_environment_is_refused(monkeypatch):
-    monkeypatch.setenv("REPRO_TUNE_CACHE", "t.json")
-    with pytest.raises(SystemExit) as e:
-        _run(port_oms, ["search", "--store", "s"])
-    assert "ROADMAP queue 1 item 6" in str(e.value.code)
+@pytest.fixture
+def _tune_runtime():
+    from repro_torch import tune
+    tune.reset_runtime()
+    yield tune
+    tune.reset_runtime()
+
+
+def test_tune_writes_a_winner_cache(tmp_path, _tune_runtime):
+    cache, table = tmp_path / "tune.json", tmp_path / "table.txt"
+    out, err = _run(port_oms, ["tune", "--grid", "tiny", "--dim", "256",
+                               "--rows", "200", "--iters", "1", "--cache",
+                               str(cache), "--table", str(table), *CPU])
+    from repro.tune import cache as ref_cache
+    entries = ref_cache.TuneCache.load(cache).entries
+    assert {k[1] for k in entries} == set(_tune_runtime.SWEPT_BACKENDS)
+    assert all(k[0] == "cpu" for k in entries)
+    assert table.read_text().strip() == out.strip()
+    assert len(out.splitlines()) == 1 + len(_tune_runtime.SWEPT_BACKENDS)
+    assert "device=cpu" in err and "14 candidates over 5 backends" in err
+
+
+def test_analyze_imports_exits_zero(tmp_path):
+    report = tmp_path / "analyze.json"
+    out, _ = _run(port_oms, ["analyze", "--imports", "--no-recompile",
+                             "--json", str(report), *CPU])
+    assert "imports:" in out and "— OK" in out and "ALL CONTRACTS HOLD" in out
+    rep = json.loads(report.read_text())
+    assert rep["imports"]["ok"] and rep["contracts"]["ok"]
+    assert rep["contracts"]["n_combinations"] == 169
+
+
+@pytest.mark.parametrize("cmd", ["search", "serve"])
+def test_tune_cache_changes_no_output_and_hits(store, requests, cmd, tmp_path,
+                                               _tune_runtime):
+    """Tuned launch parameters and a tuned bucket floor give the same bytes;
+    the stats line shows the cache was read at dispatch."""
+    port_path = store[1]
+    extra = ["--backend", "fused", "--prefix-words", "4"]
+    if cmd == "search":
+        argv = ["search", "--queries", str(QUERIES), *SERVE, *extra,
+                "--store", port_path, *COMMON, *CPU]
+        stdin = None
+    else:
+        argv = ["serve", *SERVE, *extra, "--store", port_path, *CPU,
+                "--resident", "--no-result-cache"]
+        stdin = requests[0]
+    plain, plain_err = _run(port_oms, argv, stdin)
+    tuned, tuned_err = _run(port_oms, [*argv, "--tune-cache",
+                                       _tune_cache(tmp_path / "t.json")], stdin)
+    if cmd == "search":
+        plain, tuned = _result_lines(plain), _result_lines(tuned)
+        assert len(plain) >= 4
+    assert tuned == plain
+    assert "tune-cache" not in plain_err
+    hits = re.search(rf"\[oms {cmd}\] tune-cache .*: 2 entries, (\d+) hits / "
+                     rf"(\d+) misses at dispatch", tuned_err)
+    assert hits and int(hits.group(1)) > 0
+
+
+def test_tune_cache_environment_is_honoured(store, monkeypatch, tmp_path,
+                                            _tune_runtime):
+    monkeypatch.setenv("REPRO_TUNE_CACHE", _tune_cache(tmp_path / "env.json"))
+    _, err = _run(port_oms, ["search", "--queries", str(QUERIES), *SERVE,
+                             "--backend", "fused", "--prefix-words", "4",
+                             "--store", store[1], *COMMON, *CPU])
+    assert re.search(r"\[oms search\] tune-cache .*env\.json: 2 entries, "
+                     r"[1-9]\d* hits", err)
 
 
 def test_trace_report_reads_the_serve_trace(store, requests, tmp_path):
