@@ -126,6 +126,18 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      dispatch. After phase 16: ``analyze --imports`` on the card, every
      recording under sync debug mode "error"; it exits 0; n_checks and
      each combination's allocator peak.
+ 18. multi-device OMS, run after phase 15 (before phase 16): S distinct
+     cards where the machine has more than one (dealt round-robin), else S
+     entries of the one card. ``sharded_search`` of phase 3's sorted batch
+     on a ("model",) mesh at S = 2 and 4 (both pad the 567 blocks by one),
+     with fused and fused_mxu at top_k 1 and 16, each bit for bit against
+     the resident fused search at that top_k (the padding is appended, so
+     real rows keep their numbers) and launching its kernel once a shard;
+     first and warm times, one shard's search and the merge in CUDA events,
+     the peak device memory. Then ``from_store(resident=False,
+     stream_devices=...)`` with 2 and 4 entries on phase 12's store at 2^18
+     rows a slab, bit for bit against the one-device streamed result,
+     StreamStats included, with its per-slab times.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
@@ -267,6 +279,15 @@ TUNE_ITERS = 20
 TUNE_QUERIES = 16
 ANALYZE_REPORT = HERE / "build" / "smoke_analyze.json"
 SQRT_CHECK_SPECTRA = 1 << 16
+
+# Phase 18: multi-device OMS. Sharded search at S shards (both pad the
+# 567-block DB by one block) with both fused kernels at two top_k; the
+# streamed search dealt over this many device entries at 2^18-row slabs.
+SHARD_COUNTS = (2, 4)
+SHARD_KS = (1, 16)
+SHARD_KERNELS = STREAM_KERNELS
+SHARD_WARM_RUNS = 5
+STREAM_DEVICE_COUNTS = (2, 4)
 
 
 def log(msg: str) -> None:
@@ -1670,6 +1691,134 @@ def phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out) -> dict:
     return launches
 
 # ---------------------------------------------------------------------------
+# Phase 18: multi-device OMS (runs after phase 15, on phase 12's store)
+# ---------------------------------------------------------------------------
+
+
+def smoke_devices(torch, n: int) -> list:
+    """``n`` device entries: distinct cards dealt round-robin where the
+    machine has more than one, else ``n`` entries of the one card (bit-exact,
+    but the entries run one after another)."""
+    if DEVICE == "cpu":
+        return [torch.device("cpu")] * n
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def phase_multi_device(torch, pipe, spipe, cfg, hvs, q_pmz, q_charge) -> dict:
+    from repro_torch.core.blocking import shard_reference_db
+    from repro_torch.core.search import _search_sorted_padded
+    from repro_torch.distributed import make_mesh, place_shards, sharded_search
+    from repro_torch.distributed.collectives import _merge_best
+    from repro_torch.core.pipeline import OMSPipeline
+
+    cards = torch.cuda.device_count() if DEVICE != "cpu" else 0
+    log(f"[multi] {cards} CUDA device(s): " + (
+        "shards and slab streams go to distinct cards, round-robin" if cards > 1 else
+        "every shard and slab stream on the one card (bit-exact, no overlap; the "
+        "launch guard across cards is not exercised)"))
+    launches = {k: {} for k in SHARD_KERNELS.values()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params0, qh, qp, qc, _ = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
+    resident = {}
+    for k in SHARD_KS:
+        params = params0._replace(backend="fused", top_k=k)
+        resident[k] = _search_sorted_padded(pipe.db, qh, qp, qc, params=params,
+                                            dim=cfg.dim)
+        t0 = time.perf_counter()
+        _search_sorted_padded(pipe.db, qh, qp, qc, params=params, dim=cfg.dim)
+        torch.cuda.synchronize()
+        log(f"[multi] resident fused top_k={k}: warm {time.perf_counter() - t0:.4f}s "
+            f"({pipe.db.n_blocks} blocks, k_blocks {params.k_blocks})")
+    for S in SHARD_COUNTS:
+        devs = smoke_devices(torch, S)
+        mesh = make_mesh((S,), ("model",), devices=devs)
+        t0 = time.perf_counter()
+        sdb = place_shards(shard_reference_db(pipe.db, S), devs)
+        torch.cuda.synchronize()
+        t_place = time.perf_counter() - t0
+        log(f"[multi] S={S} on {[str(d) for d in devs]}: padded to {sdb.n_blocks} blocks "
+            f"({sdb.n_blocks - pipe.db.n_blocks} pad), {sdb.blocks_per_shard} blocks = "
+            f"{sdb.rows_per_shard} rows = {sdb.shards[0].hvs.numel() * 4 / 1e6:.1f} MB of "
+            f"HVs a shard; padded and placed in {t_place:.3f}s")
+        for be, kernel in SHARD_KERNELS.items():
+            for k in SHARD_KS:
+                params = params0._replace(backend=be, top_k=k)
+                (outs, same), t_first, counts = _counted(torch, lambda: sharded_search(
+                    sdb, qh, qp, qc, params, dim=cfg.dim, mesh=mesh))
+                require(same is sdb, "sharded_search did not take the ShardedDB as it is")
+                for f, a, b in zip(FUSED_OUTS, outs, resident[k]):
+                    require(equal(a, b), f"sharded {be} S={S} top_k={k}: {f} differs "
+                            f"from the resident fused result")
+                require(counts[kernel] == S, f"sharded {be} S={S}: {counts[kernel]} "
+                        f"{kernel} launches, expected one a shard")
+                path = f"sharded {be}, S={S}, top_k={k}"
+                launches[kernel][path] = counts[kernel]
+                t_warm = statistics.median(_counted(torch, lambda: sharded_search(
+                    sdb, qh, qp, qc, params, dim=cfg.dim, mesh=mesh))[1]
+                    for _ in range(SHARD_WARM_RUNS))
+                local = params._replace(k_blocks=min(params.k_blocks, sdb.blocks_per_shard))
+                parts = [_search_sorted_padded(sh, *(x.to(sh.device) for x in (qh, qp, qc)),
+                                               params=local, dim=cfg.dim)
+                         for sh in sdb.shards]
+                shard_ms = cuda_ms(lambda: _search_sorted_padded(
+                    sdb.shards[0], qh, qp, qc, params=local, dim=cfg.dim), iters=5)
+                merge_ms = cuda_ms(lambda: [_merge_best([p[i] for p in parts],
+                                                        [p[i + 1] for p in parts], k,
+                                                        devs[0]) for i in (0, 2)])
+                log(f"[multi] {path}: == resident fused (4 arrays, global rows); "
+                    f"first {t_first:.4f}s, warm {t_warm:.4f}s (median of "
+                    f"{SHARD_WARM_RUNS}); one shard's search "
+                    f"{shard_ms:.3f} ms, merge (2 x _merge_best over {S} x {k}) "
+                    f"{merge_ms:.3f} ms (CUDA events); {kernel} launches {counts[kernel]}")
+        del sdb, same, outs, parts
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"[multi] sharded search: peak memory of the current card above its "
+        f"baseline {peak / 2**30:.3f} GiB (the padded DB copy, the per-shard "
+        f"partials)")
+
+    one, _, _ = _counted(torch, lambda: spipe.search_encoded(hvs, q_pmz, q_charge))
+    one_stats = spipe.engine.last_stats
+    slab_rows = spipe.engine.plan.slab_rows
+    for n in STREAM_DEVICE_COUNTS:
+        devs = smoke_devices(torch, n)
+        mpipe = OMSPipeline.from_store(STORE_DIR, cfg, resident=False,
+                                       slab_rows=slab_rows, stream_devices=devs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mbase = torch.cuda.memory_allocated()
+        res, t_first, counts = _counted(torch, lambda: mpipe.search_encoded(
+            hvs, q_pmz, q_charge))
+        st = mpipe.engine.last_stats
+        require(_outputs_equal(res, one), f"streamed over {n} device entries differs "
+                f"from the one-device streamed result")
+        require(st == one_stats, f"streamed over {n} device entries: StreamStats {st} "
+                f"!= one device's {one_stats}")
+        require(counts["fused_search"] == st.n_scanned > 0, f"streamed over {n} "
+                f"entries: {counts['fused_search']} fused launches for "
+                f"{st.n_scanned} slabs")
+        stats = {}
+        t0 = time.perf_counter()
+        mpipe.search_encoded(hvs, q_pmz, q_charge, stats=stats)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - mbase
+        launches["fused_search"][f"streamed fused over {n} device entries"] = (
+            counts["fused_search"])
+        log(f"[multi] streamed fused over {n} entries {[str(d) for d in devs]}, "
+            f"{slab_rows} rows a slab: == one-device streamed (6 arrays, both FDRs, "
+            f"StreamStats {tuple(st)}); first {t_first:.3f}s, warm {t_warm:.3f}s; "
+            f"{_slab_line(stats)}; peak memory of the current card above its "
+            f"baseline {peak / 2**30:.3f} GiB; fused_search launches "
+            f"{counts['fused_search']}")
+        del mpipe
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 16: the launcher on the card
 # ---------------------------------------------------------------------------
 
@@ -2408,6 +2557,9 @@ def main() -> int:
                                    out)["hamming_matrix"])
         by_path["fused_search"].update(
             phase_narrow_cascade(torch, pipe, spipe, hvs, q_pmz, q_charge, out))
+        for kernel, paths in phase_multi_device(torch, pipe, spipe, cfg, hvs, q_pmz,
+                                                q_charge).items():
+            by_path[kernel].update(paths)
         del spipe
         for kernel, paths in phase_launcher(
                 torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds,

@@ -251,6 +251,33 @@ def build_reference_db_from_runs(runs: Iterable[LibraryRun], *,
                           device=device)
 
 
+def shard_reference_db(db: ReferenceDB, n_shards: int) -> ReferenceDB:
+    """Pad the block dimension at the end so the DB splits evenly into
+    ``n_shards`` contiguous runs of whole blocks (shard ``s`` owns blocks
+    ``[s * bps, (s + 1) * bps)``); the padding rows are the layout's own
+    (PAD_PMZ, charge -1, no decoy, orig_idx -1) and the padding blocks
+    match nothing (block_min +inf, block_max -inf, charge -1). With nothing
+    to pad the DB itself is returned."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    nb_pad = (-db.n_blocks) % n_shards
+    if nb_pad == 0:
+        return db
+    pad_rows = nb_pad * db.max_r
+
+    def pad(x: torch.Tensor, n: int, value) -> torch.Tensor:
+        return torch.cat([x, x.new_full((n, *x.shape[1:]), value)])
+
+    return ReferenceDB(
+        hvs=pad(db.hvs, pad_rows, 0), pmz=pad(db.pmz, pad_rows, PAD_PMZ),
+        charge=pad(db.charge, pad_rows, -1),
+        is_decoy=pad(db.is_decoy, pad_rows, False),
+        orig_idx=pad(db.orig_idx, pad_rows, -1),
+        block_min=pad(db.block_min, nb_pad, float("inf")),
+        block_max=pad(db.block_max, nb_pad, float("-inf")),
+        block_charge=pad(db.block_charge, nb_pad, -1), max_r=db.max_r)
+
+
 def candidate_block_stats(db, q_pmz, q_charge, tol_da: float) -> dict:
     """Host-side orchestrator statistics: how many reference rows would be
     scanned under block pruning vs exhaustively (the paper's 5.5x comparison-

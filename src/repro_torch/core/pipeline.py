@@ -234,8 +234,9 @@ class OMSPipeline:
         on the device. ``resident=False`` keeps the library in the store:
         searches stream it ``slab_rows`` rows at a time through
         :class:`~repro_torch.serve.StreamingEngine`, with the same results.
-        ``stream_devices`` of more than one device is not ported (ROADMAP
-        queue 1 item 8) and raises."""
+        ``stream_devices`` deals the slab stream round-robin over several
+        devices (see ``repro_torch.distributed.collectives``); ``device``
+        then defaults to its first entry."""
         if not isinstance(store, LibraryStore):
             store = LibraryStore.open(os.fspath(store))
         if cfg is None:
@@ -245,6 +246,8 @@ class OMSPipeline:
                 cfg = dataclasses.replace(cfg, **overrides)
             store.check_config(cfg)
         self = cls.__new__(cls)
+        if device is None and stream_devices:
+            device = stream_devices[0]
         self.device = resolve_device(device)
         self.cfg = cfg
         self.engine = None

@@ -194,3 +194,13 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def on_device(device: torch.device):
+    """Guard of one kernel launch: makes ``device``, the device of the
+    launch's tensors, the current CUDA device for the call. The launchers
+    read the current device where they take its SM count and where they
+    opt in to more than 48 KB of dynamic shared memory
+    (``cudaFuncSetAttribute``), so without it a launch on a second card
+    would run with the first card's settings."""
+    return torch.cuda.device(device)

@@ -125,15 +125,15 @@ def launch_tile(kernel: str, counter: _build.LaunchCounter, q, r, *extra):
     if Q == 0 or R == 0:
         return out
     launcher = getattr(_build.library(), f"{kernel}_launch")
-    rest = [ctypes.c_int(R), ctypes.c_int(W), *map(ctypes.c_int, extra),
-            _build.stream_ptr(dev)]
+    rest = [ctypes.c_int(R), ctypes.c_int(W), *map(ctypes.c_int, extra)]
     # One launch on the whole tensors unless the batch must be cut.
     parts = ([(q, out)] if Q <= TILE_Q_CHUNK else
              [(q[i:i + TILE_Q_CHUNK], out[i:i + TILE_Q_CHUNK])
               for i in range(0, Q, TILE_Q_CHUNK)])
     for qs, os_ in parts:
-        rc = launcher(_build.ptr(qs), _build.ptr(r), _build.ptr(os_),
-                      ctypes.c_int(qs.shape[0]), *rest)
+        with _build.on_device(dev):
+            rc = launcher(_build.ptr(qs), _build.ptr(r), _build.ptr(os_),
+                          ctypes.c_int(qs.shape[0]), *rest, _build.stream_ptr(dev))
         _build.check(rc, f"{kernel}_launch")
         counter.count += 1
     return out
@@ -240,16 +240,17 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
     outs = [torch.empty((n_tiles * QT, k), dtype=torch.int32, device=dev)
             for _ in range(4)]
     launcher = getattr(_build.library(), f"{kernel}_launch")
-    rc = launcher(
-        _build.ptr(q_hvs), _build.ptr(q_pmz), _build.ptr(q_charge),
-        _build.ptr(r_hvs), _build.ptr(r_pmz), _build.ptr(r_charge),
-        _build.ptr(tile_start), _build.ptr(partial),
-        *(_build.ptr(o) for o in outs),
-        ctypes.c_int(n_tiles), ctypes.c_int(N), ctypes.c_int(W),
-        ctypes.c_int(dim), ctypes.c_int(k), ctypes.c_int(rk),
-        ctypes.c_int(n_splits), ctypes.c_float(ref.std_scale(ppm_tol)),
-        ctypes.c_float(float(np.float32(open_tol_da))),
-        ctypes.c_float(PAD_PMZ), _build.stream_ptr(dev))
+    with _build.on_device(dev):
+        rc = launcher(
+            _build.ptr(q_hvs), _build.ptr(q_pmz), _build.ptr(q_charge),
+            _build.ptr(r_hvs), _build.ptr(r_pmz), _build.ptr(r_charge),
+            _build.ptr(tile_start), _build.ptr(partial),
+            *(_build.ptr(o) for o in outs),
+            ctypes.c_int(n_tiles), ctypes.c_int(N), ctypes.c_int(W),
+            ctypes.c_int(dim), ctypes.c_int(k), ctypes.c_int(rk),
+            ctypes.c_int(n_splits), ctypes.c_float(ref.std_scale(ppm_tol)),
+            ctypes.c_float(float(np.float32(open_tol_da))),
+            ctypes.c_float(PAD_PMZ), _build.stream_ptr(dev))
     _build.check(rc, f"{kernel}_launch")
     counter.count += 1
     if per_block != q_block:

@@ -43,11 +43,12 @@ def hdencode(bins: torch.Tensor, levels: torch.Tensor, mask: torch.Tensor,
     if B == 0:
         return out
     lib = _build.library()
-    rc = lib.hdencode_launch(
-        _build.ptr(bins), _build.ptr(levels), _build.ptr(mask),
-        _build.ptr(id_hvs), _build.ptr(level_hvs), _build.ptr(tiebreak),
-        _build.ptr(out), ctypes.c_int(B), ctypes.c_int(P), ctypes.c_int(W),
-        _build.stream_ptr(dev))
+    with _build.on_device(dev):
+        rc = lib.hdencode_launch(
+            _build.ptr(bins), _build.ptr(levels), _build.ptr(mask),
+            _build.ptr(id_hvs), _build.ptr(level_hvs), _build.ptr(tiebreak),
+            _build.ptr(out), ctypes.c_int(B), ctypes.c_int(P), ctypes.c_int(W),
+            _build.stream_ptr(dev))
     _build.check(rc, "hdencode_launch")
     launches.count += 1
     return out

@@ -26,6 +26,18 @@ event marks the searches done with a device buffer: the next copy into that
 buffer waits on it. So the gather of slab ``j + 1`` and its copy overlap
 the search of slab ``j``. On the CPU the slab arrays are used in place.
 
+Several devices (``devices=[d0, d1, ...]``, the multi-SmartSSD scale-out
+with the library streamed): the full-width scan deals touched slab ``j``
+to ``devices[j % n]``, which has its own device buffers, copy stream and
+events (per position in the list, so a repeated device gets its own set;
+the pinned host buffers and the gather thread are shared). The queries are
+copied to each device once a scan, before any slab search; each slab's
+offset winners move to ``d0`` and fold into the running best there in
+ascending slab order, so the result is the one-device result. One process
+enqueues every device's work without waiting for it; the copy of a slab's
+winners to ``d0`` orders that device's later work after ``d0``'s queue.
+The dimension cascade's scan runs on ``d0``.
+
 Spans (``repro_torch.obs``, the reference's names and attributes):
 ``serve.scan`` around a whole scan, per slab ``serve.slab.fetch`` (the wait
 for the gather thread's pinned buffer), ``serve.slab.search`` and
@@ -169,14 +181,18 @@ class _Clock:
 
 
 class _SlabBuffers:
-    """Two host slab buffers (pinned on CUDA) and, on CUDA, two device slab
-    buffers, a copy stream and the copy-done / search-done events. Buffer
-    ``i`` is allocated at its first use (a one-slab scan needs one)."""
+    """Slab buffers of one scan over ``devices``: two host slab buffers
+    (pinned on CUDA), shared by every position in ``devices``, and on CUDA
+    per position two device slab buffers, a copy stream and copy-done /
+    search-done events — per position, not per device, so a list that
+    repeats a device gets independent sets. Touched slab ``j`` goes through
+    host buffer ``j % 2`` and device buffer ``(j // n) % 2`` of position
+    ``j % n``. Buffers are allocated at their first use."""
 
-    def __init__(self, device: torch.device, rows: int, blocks: int, W: int,
-                 max_r: int):
-        self.device = device
-        self.cuda = device.type == "cuda"
+    def __init__(self, devices: Sequence[torch.device], rows: int, blocks: int,
+                 W: int, max_r: int):
+        self.devices = list(devices)
+        self.cuda = self.devices[0].type == "cuda"
         self.max_r = max_r
         self.shapes = dict(
             hvs=((rows, W), torch.int32), pmz=((rows,), torch.float32),
@@ -187,77 +203,97 @@ class _SlabBuffers:
         self.host_t = [None, None]      # ReferenceDB of (pinned) CPU tensors
         self.host = [None, None]        # the same memory as numpy arrays
         if self.cuda:
-            self.dev = [None, None]
-            self.copy_stream = torch.cuda.Stream(device)
-            self.copy_done = [torch.cuda.Event() for _ in range(2)]
-            self.search_done = [torch.cuda.Event() for _ in range(2)]
+            n = len(self.devices)
+            self.host_read = [None, None]   # event of the last copy out of it
+            self.dev = [[None, None] for _ in range(n)]
+            self.copy_stream = [torch.cuda.Stream(d) for d in self.devices]
+            self.copy_done = [[torch.cuda.Event() for _ in range(2)] for _ in range(n)]
+            self.search_done = [[torch.cuda.Event() for _ in range(2)] for _ in range(n)]
+
+    def slot(self, j: int) -> tuple[int, int]:
+        """(position in ``devices``, device buffer) of touched slab ``j``."""
+        n = len(self.devices)
+        return j % n, (j // n) % 2
 
     def _alloc(self, dev, pin: bool) -> ReferenceDB:
         return ReferenceDB(**{f: torch.empty(s, dtype=dt, device=dev, pin_memory=pin)
                               for f, (s, dt) in self.shapes.items()}, max_r=self.max_r)
 
-    def host_buffer(self, i: int) -> ReferenceDB:
-        """Host buffer ``i`` as numpy arrays (allocated at first use)."""
-        if self.host_t[i] is None:
-            self.host_t[i] = self._alloc("cpu", self.cuda)
-            self.host[i] = ReferenceDB(
-                **{f: getattr(self.host_t[i], f).numpy() for f in _DB_FIELDS},
+    def host_buffer(self, h: int) -> ReferenceDB:
+        """Host buffer ``h`` as numpy arrays (allocated at first use)."""
+        if self.host_t[h] is None:
+            self.host_t[h] = self._alloc("cpu", self.cuda)
+            self.host[h] = ReferenceDB(
+                **{f: getattr(self.host_t[h], f).numpy() for f in _DB_FIELDS},
                 max_r=self.max_r)
-        return self.host[i]
+        return self.host[h]
 
-    def wait_host_free(self, i: int) -> None:
-        """Block until the last copy out of pinned buffer ``i`` is done."""
-        if self.cuda:
-            self.copy_done[i].synchronize()
+    def wait_host_free(self, h: int) -> None:
+        """Block until the last copy out of pinned buffer ``h`` is done."""
+        if self.cuda and self.host_read[h] is not None:
+            self.host_read[h].synchronize()
 
-    def upload(self, i: int, clock: _Clock | None):
-        """Enqueue host buffer ``i`` -> device buffer ``i`` and make the
-        current stream wait for it; returns (device slab, upload marks)."""
+    def upload(self, j: int, clock: _Clock | None):
+        """Enqueue host buffer ``j % 2`` -> slab ``j``'s device buffer and
+        make its device's current stream wait for it; returns (device slab,
+        upload marks)."""
+        h = j % 2
         if not self.cuda:
-            return self.host_t[i], None
-        if self.dev[i] is None:
-            self.dev[i] = self._alloc(self.device, False)
-        cs = self.copy_stream
+            return self.host_t[h], None
+        p, i = self.slot(j)
+        if self.dev[p][i] is None:
+            self.dev[p][i] = self._alloc(self.devices[p], False)
+        cs = self.copy_stream[p]
         marks = None
         with torch.cuda.stream(cs):
-            cs.wait_event(self.search_done[i])
+            cs.wait_event(self.search_done[p][i])
             if clock is not None:
                 marks = [clock.mark(cs)]
             for f in _DB_FIELDS:
-                getattr(self.dev[i], f).copy_(getattr(self.host_t[i], f),
-                                              non_blocking=True)
+                getattr(self.dev[p][i], f).copy_(getattr(self.host_t[h], f),
+                                                 non_blocking=True)
             if clock is not None:
                 marks.append(clock.mark(cs))
-            self.copy_done[i].record(cs)
-        torch.cuda.current_stream(self.device).wait_event(self.copy_done[i])
-        return self.dev[i], marks
+            self.copy_done[p][i].record(cs)
+        self.host_read[h] = self.copy_done[p][i]
+        torch.cuda.current_stream(self.devices[p]).wait_event(self.copy_done[p][i])
+        return self.dev[p][i], marks
 
-    def release(self, i: int) -> None:
-        """The searches of device buffer ``i`` are all enqueued."""
+    def release(self, j: int) -> None:
+        """The searches of slab ``j``'s device buffer are all enqueued."""
         if self.cuda:
-            self.search_done[i].record(torch.cuda.current_stream(self.device))
+            p, i = self.slot(j)
+            self.search_done[p][i].record(torch.cuda.current_stream(self.devices[p]))
 
     def settle(self) -> None:
         """Order every later use of the buffers after all enqueued work."""
         if self.cuda:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_stream(self.copy_stream)
-            for i in range(2):
-                self.search_done[i].record(cur)
+            for p, dev in enumerate(self.devices):
+                cur = torch.cuda.current_stream(dev)
+                cur.wait_stream(self.copy_stream[p])
+                for i in range(2):
+                    self.search_done[p][i].record(cur)
 
 
 class StreamingEngine:
     """Executes OMS over a LibraryStore (or a prebuilt :class:`StoreLayout`)
-    one bounded slab at a time, on ``device`` (``None`` -> CUDA)."""
+    one bounded slab at a time, on ``device`` (``None`` -> CUDA) or, with
+    ``devices=[d0, d1, ...]``, dealing the full-width scan's slabs
+    round-robin over them (``device`` is then not read). Partials merge on
+    ``d0`` (``self.device``) in ascending slab order, so results,
+    ``StreamStats`` and spans are those of one device; the dimension
+    cascade's scan runs on ``d0``. A list may repeat a device (each entry
+    gets its own slab buffers); its entries must share one device type."""
 
     def __init__(self, store_or_layout, *, max_r: int, slab_rows: int = 1 << 18,
                  devices: Sequence | None = None, prefetch: bool = True,
                  device=None):
-        if devices is not None and len(devices) > 1:
-            raise NotImplementedError(
-                "StreamingEngine: streaming over several devices is not ported "
-                "yet (ROADMAP queue 1 item 8, multi-GPU); pass one device")
-        self.device = resolve_device(devices[0] if devices else device)
+        self.devices = ([resolve_device(d) for d in devices] if devices
+                        else [resolve_device(device)])
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"StreamingEngine: devices {self.devices} mix "
+                             f"device types")
+        self.device = self.devices[0]
         self.max_r = max_r
         self._slab_rows_req = slab_rows
         self._prefetch = prefetch
@@ -309,18 +345,19 @@ class StreamingEngine:
             self.total_stats = TotalStats()
 
     # ------------------------------------------------------------------
-    def _take_buffers(self, plan: SlabPlan, W: int) -> _SlabBuffers:
-        key = (plan.slab_rows, plan.slab_blocks, W)
+    def _take_buffers(self, plan: SlabPlan, W: int, n_dev: int) -> _SlabBuffers:
+        key = (plan.slab_rows, plan.slab_blocks, W, n_dev)
         with self._buf_lock:
             free = self._buffers.setdefault(key, [])
             if free:
                 return free.pop()
-        return _SlabBuffers(self.device, plan.slab_rows, plan.slab_blocks, W,
-                            plan.max_r)
+        return _SlabBuffers(self.devices[:n_dev], plan.slab_rows, plan.slab_blocks,
+                            W, plan.max_r)
 
     def _give_buffers(self, plan: SlabPlan, W: int, bufs: _SlabBuffers) -> None:
         with self._buf_lock:
-            self._buffers[(plan.slab_rows, plan.slab_blocks, W)].append(bufs)
+            self._buffers[(plan.slab_rows, plan.slab_blocks, W,
+                           len(bufs.devices))].append(bufs)
 
     @staticmethod
     def _slab_real_rows(layout: StoreLayout, plan: SlabPlan, s: int) -> int:
@@ -345,43 +382,46 @@ class StreamingEngine:
         pool.shutdown(wait=False)
 
     def _stream(self, layout: StoreLayout, plan: SlabPlan, touched,
-                n_words: int | None, timings: list | None):
+                n_words: int | None, timings: list | None, n_dev: int = 1):
         """Yield ``(s, device slab)`` for the touched slabs in ascending
-        order, double-buffered (module docstring). Everything the caller
-        enqueues for a slab before asking for the next one is ordered
-        before that slab's device buffer is overwritten."""
+        order, double-buffered (module docstring), touched slab ``j`` on
+        ``self.devices[j % n_dev]``. Everything the caller enqueues for a
+        slab before asking for the next one is ordered before that slab's
+        device buffer is overwritten."""
         W = layout.n_words if n_words is None else n_words
-        bufs = self._take_buffers(plan, W)
+        bufs = self._take_buffers(plan, W, n_dev)
         clock = _Clock(self.device) if timings is not None else None
         pool = ThreadPoolExecutor(max_workers=1) if (
             self._prefetch and len(touched) > 1) else None
 
         def fetch(j: int) -> float:
-            i = j % 2
-            bufs.wait_host_free(i)
+            h = j % 2
+            bufs.wait_host_free(h)
             t0 = time.perf_counter()
-            slab_arrays(layout, touched[j], plan, n_words=W, out=bufs.host_buffer(i))
+            slab_arrays(layout, touched[j], plan, n_words=W, out=bufs.host_buffer(h))
             return time.perf_counter() - t0
+
+        def search_mark(dev):
+            return clock.mark(torch.cuda.current_stream(dev) if clock.cuda else None)
 
         nxt = None
         try:
             if pool:
                 nxt = pool.submit(fetch, 0)
             for j, s in enumerate(touched):
-                i = j % 2
                 with span("serve.slab.fetch", slab=int(s)):
                     gather_s = nxt.result() if nxt else fetch(j)
-                db, up = bufs.upload(i, clock)
+                db, up = bufs.upload(j, clock)
                 nxt = pool.submit(fetch, j + 1) if (
                     pool and j + 1 < len(touched)) else None
                 if clock is not None:
                     rec = dict(slab=int(s), gather_s=gather_s, upload=up,
-                               search=[clock.mark()])
+                               search=[search_mark(db.device)])
                     timings.append(rec)
                 yield int(s), db
                 if clock is not None:
-                    rec["search"].append(clock.mark())
-                bufs.release(i)
+                    rec["search"].append(search_mark(db.device))
+                bufs.release(j)
         finally:
             self._drain_prefetch(pool, nxt)
             bufs.settle()
@@ -391,8 +431,9 @@ class StreamingEngine:
                        dim: int, q_pmz_np: np.ndarray | None = None,
                        q_charge_np: np.ndarray | None = None,
                        stats: dict | None = None) -> SearchResult:
-        """Streamed equivalent of ``oms_search``: same inputs (tensors on the
-        engine's device), the same :class:`SearchResult`. With
+        """Streamed equivalent of ``oms_search``: same inputs, the same
+        :class:`SearchResult`, on the queries' device (the engine copies the
+        queries to each of its devices once a scan). With
         ``params.prefix_words > 0`` the slab scan runs as the dimension
         cascade (prefix-word slab reads + full-width survivor fetches).
         ``stats``, when given, receives per slab the host gather seconds and
@@ -428,7 +469,7 @@ class StreamingEngine:
             sp.add(rows=st.scanned_rows, bytes=st.scanned_bytes)
 
         if run is None:          # no slab intersects any query window
-            z = torch.full((Q, K), -1, dtype=torch.int32, device=self.device)
+            z = torch.full((Q, K), -1, dtype=torch.int32, device=q_hvs.device)
             out = SearchResult(*(z,) * 6)
         else:
             # Drop padding queries, restore input order, finalize on the
@@ -437,12 +478,13 @@ class StreamingEngine:
             std_b, std_row, open_b, open_row = (_host(x)[unpad_np] for x in run)
             std = self._finalize(layout, std_b, std_row, params.min_sim)
             opn = self._finalize(layout, open_b, open_row, params.min_sim)
-            out = SearchResult(*(torch.from_numpy(a).to(self.device) for a in (
+            out = SearchResult(*(torch.from_numpy(a).to(q_hvs.device) for a in (
                 std[0], std[1], opn[0], opn[1], std[2], opn[2])))
         if stats is not None:
             clock = _Clock(self.device)
             if clock.cuda:
-                torch.cuda.synchronize(self.device)
+                for d in set(self.devices):
+                    torch.cuda.synchronize(d)
             stats["slabs"] = [dict(
                 slab=r["slab"], gather_s=r["gather_s"],
                 upload_ms=clock.ms(*r["upload"]) if r["upload"] else 0.0,
@@ -451,23 +493,34 @@ class StreamingEngine:
 
     def _scan_full(self, layout: StoreLayout, plan: SlabPlan, touched,
                    qh, qp, qc, params: SearchParams, dim: int, timings):
-        """Full-width slab loop."""
+        """Full-width slab loop: touched slab ``j`` is searched on
+        ``devices[j % n]``; its offset winners move to ``self.device`` and
+        fold into the running best there, in ascending slab order."""
         K = params.top_k
         local = params._replace(k_blocks=min(params.k_blocks, plan.slab_blocks))
         W = layout.n_words
         rows_read = 0
         run = None
-        with contextlib.closing(self._stream(layout, plan, touched, None,
-                                             timings)) as slabs:
+        # One copy of the queries per device, made before any slab search
+        # is enqueued (a copy between cards waits for the work queued on
+        # both), keyed by the device its tensors report ("cuda" gives
+        # "cuda:0").
+        queries = {}
+        for d in dict.fromkeys(self.devices):
+            q = tuple(x.to(d) for x in (qh, qp, qc))
+            queries[q[0].device] = q
+        with contextlib.closing(self._stream(layout, plan, touched, None, timings,
+                                             len(self.devices))) as slabs:
             for s, db in slabs:
                 n_real = self._slab_real_rows(layout, plan, s)
                 rows_read += n_real
                 with span("serve.slab.search", slab=s, rows=n_real,
                           bytes=n_real * W * 4):
-                    out = _search_sorted_padded(db, qh, qp, qc, params=local,
-                                                dim=dim)
+                    out = _search_sorted_padded(db, *queries[db.device],
+                                                params=local, dim=dim)
                 with span("serve.slab.merge", slab=s):
-                    part = _offset_rows(*out, s * plan.slab_rows)
+                    part = tuple(x.to(self.device) for x in
+                                 _offset_rows(*out, s * plan.slab_rows))
                     run = part if run is None else _merge_partials(run, part, K)
         st = StreamStats(plan.n_slabs, len(touched), plan.slab_rows,
                          scanned_rows=rows_read,
@@ -484,6 +537,7 @@ class StreamingEngine:
         K, P, W = p.top_k, p.prefix_words, layout.n_words
         local = p._replace(k_blocks=min(p.k_blocks, plan.slab_blocks))
         dev = self.device
+        qh, qp, qc = (x.to(dev) for x in (qh, qp, qc))
         rows_read = 0
         bytes_read = 0
 

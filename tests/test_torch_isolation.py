@@ -84,6 +84,18 @@ def test_launcher_obs_and_serve_front_modules_are_covered():
             "repro_torch.core.baselines"} <= mods
 
 
+def test_distributed_modules_are_covered():
+    """The static scan and the jax-free import reach the multi-device
+    modules (the mesh, the sharded search and its store loader)."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    assert {"distributed/__init__.py", "distributed/mesh.py",
+            "distributed/collectives.py"} <= files
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch.distributed", "repro_torch.distributed.mesh",
+            "repro_torch.distributed.collectives"} <= mods
+
+
 def test_launcher_runs_with_jax_absent(tmp_path):
     """``python -m repro_torch.launch.oms`` with jax and the reference
     package made unimportable: ``queries`` runs, ``build`` without

@@ -287,15 +287,31 @@ def test_reload_store_equals_cold_start(setup, tmp_path):
 
 
 def test_several_devices_raise_and_name_the_roadmap_item(setup):
-    path = setup[0]
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        StreamingEngine(LibraryStore.open(path), max_r=CFG["max_r"],
-                        devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        pipeline.OMSPipeline.from_store(path, pipeline.OMSConfig(**CFG), device="cpu",
-                                        resident=False, stream_devices=["cpu", "cpu"])
+    """Several stream devices no longer raise: ``from_store(...,
+    resident=False, stream_devices=["cpu", "cpu"])`` serves the same bytes
+    as one device (the result, both FDR results, the scan's stats and the
+    per-slab stats), and a one-entry list is one device."""
+    path, _, _, _, _ = setup
+    ds, (_, queries) = _data()
+    outs = []
+    for devs in (None, ["cpu", "cpu"]):
+        pipe = pipeline.OMSPipeline.from_store(
+            path, pipeline.OMSConfig(**CFG), device="cpu" if devs is None else None,
+            resident=False, slab_rows=3 * CFG["max_r"], stream_devices=devs)
+        assert pipe.device == torch.device("cpu")
+        assert pipe.engine.devices == [torch.device("cpu")] * (len(devs) if devs else 1)
+        stats = {}
+        got = pipe.search_encoded(*pipe.encode_queries(queries), top_k=2, stats=stats)
+        outs.append((convert.search_result_to_numpy(got.result),
+                     {n: convert.fdr_result_to_numpy(getattr(got, n))
+                      for n in ("open_fdr", "std_fdr")},
+                     tuple(pipe.engine.last_stats), [r["slab"] for r in stats["slabs"]]))
+    (r1, f1, s1, sl1), (r2, f2, s2, sl2) = outs
+    assert all((r1[f] == r2[f]).all() for f in r1)
+    assert all((f1[n][f] == f2[n][f]).all() for n in f1 for f in f1[n])
+    assert s1 == s2 and sl1 == sl2 and s1[1] > 1
     eng = StreamingEngine(LibraryStore.open(path), max_r=CFG["max_r"], devices=["cpu"])
-    assert eng.device == torch.device("cpu")
+    assert eng.device == torch.device("cpu") and eng.devices == [torch.device("cpu")]
 
 
 def test_concurrent_searches_share_one_engine(setup):
