@@ -138,10 +138,26 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      stream_devices=...)`` with 2 and 4 entries on phase 12's store at 2^18
      rows a slab, bit for bit against the one-device streamed result,
      StreamStats included, with its per-slab times.
+ 19. the dense LM serve path, run last; it launches none of the five
+     kernels. Width checks in float32 with TF32 off: llama3.2-3b,
+     deepseek-7b, mistral-nemo-12b, starcoder2-15b and qwen2-vl-7b at full
+     width and 2 layers, weights drawn on the card and copied to the host,
+     a prefill of 2 x 64 (qwen2-vl with 4 vision embeddings and three
+     position streams) and one decode step, logits on the card against the
+     CPU within 1e-3 of max |ref|. Then ``python -m
+     repro_torch.launch.serve --arch llama3.2-3b --batch 8 --prompt-len 512
+     --gen 64`` as a subprocess (exits 0, prints its ``[serve]`` line), and
+     Llama-3.2-3B at full width and depth in bf16 in process: parameter
+     counts real and padded, the 8 x 512 prefill (CUDA events, median of
+     5; tokens/s, MFU against ``utils/roofline.py``), 64 greedy decode
+     steps at context 513..576 (CUDA events a step; median ms, the share of
+     the HBM bound), peak device memory, and the decode of token 513
+     against a full forward over 513 tokens within 5e-2 of max |ref|.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
-the path and read just after.
+the path and read just after. Phase 19's numbers go into one ``lm`` JSON
+line before it.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the reference package.
@@ -288,6 +304,31 @@ SHARD_KS = (1, 16)
 SHARD_KERNELS = STREAM_KERNELS
 SHARD_WARM_RUNS = 5
 STREAM_DEVICE_COUNTS = (2, 4)
+
+# Phase 19: the dense LM serve path (no OMS kernel runs on it). Width
+# checks: the five dense-path configs at full width and 2 layers in
+# float32 (TF32 off), a prefill of B x S (qwen2-vl with vision embeddings
+# and three position streams) and one decode step on the card against the
+# CPU on the same weights. Then Llama-3.2-3B at full width and depth in
+# bf16: the serve command as a subprocess, prefill and decode timed in
+# process, decode against the full forward.
+LM_WIDTH_ARCHS = ("llama3.2-3b", "deepseek-7b", "mistral-nemo-12b",
+                  "starcoder2-15b", "qwen2-vl-7b")
+LM_WIDTH_LAYERS = 2
+LM_WIDTH_B, LM_WIDTH_S = 2, 64
+LM_VISION_TOKENS = 4
+LM_WIDTH_TOL = 1e-3      # max |Δ| / max |ref| of the logits, float32
+LM_ARCH = "llama3.2-3b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 512, 64
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--batch", LM_BATCH, "--prompt-len", LM_PROMPT,
+                 "--gen", LM_GEN]
+LM_PREFILL_ITERS = 5
+LM_PROFILE_STEPS = 8     # decode steps under torch.profiler (device only)
+LM_PROFILE_TOP = 8       # kernels listed by device time
+# Decode of token 513 from the cache against a full forward over 513
+# tokens, bf16: the two take different matmul shapes (1 row against 513),
+# so their bf16 roundings differ and compound over 28 layers.
+LM_DECODE_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -1823,12 +1864,13 @@ def phase_multi_device(torch, pipe, spipe, cfg, hvs, q_pmz, q_charge) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def oms_cli(args, what: str, *, stdin=None, stdout=None):
-    """Run ``python -m repro_torch.launch.oms *args`` from the repository
-    root (stdin / stdout from / to the given paths, else none / captured);
-    fails unless it exits 0. Returns (stdout text, stderr text, seconds)."""
+def oms_cli(args, what: str, *, stdin=None, stdout=None, module: str = "oms"):
+    """Run ``python -m repro_torch.launch.<module> *args`` from the
+    repository root (stdin / stdout from / to the given paths, else none /
+    captured); fails unless it exits 0. Returns (stdout text, stderr text,
+    seconds)."""
     import os
-    cmd = [sys.executable, "-m", "repro_torch.launch.oms", *map(str, args)]
+    cmd = [sys.executable, "-m", f"repro_torch.launch.{module}", *map(str, args)]
     env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
     fin = open(stdin) if stdin else None
     fout = open(stdout, "w") if stdout else None
@@ -1840,13 +1882,13 @@ def oms_cli(args, what: str, *, stdin=None, stdout=None):
                              stderr=subprocess.PIPE, text=True,
                              timeout=CLI_TIMEOUT_S)
     except subprocess.TimeoutExpired:
-        fail(f"{what}: `oms {' '.join(cmd[3:])}` ran past {CLI_TIMEOUT_S} s")
+        fail(f"{what}: `{module} {' '.join(cmd[3:])}` ran past {CLI_TIMEOUT_S} s")
     finally:
         for f in (fin, fout):
             if f is not None:
                 f.close()
     dt = time.perf_counter() - t0
-    require(res.returncode == 0, f"{what}: `oms {' '.join(cmd[3:])}` exited "
+    require(res.returncode == 0, f"{what}: `{module} {' '.join(cmd[3:])}` exited "
             f"{res.returncode}: {res.stderr[-3000:]}")
     return res.stdout or "", res.stderr, dt
 
@@ -1870,10 +1912,11 @@ def serve_profiler(torch):
     return profile(activities=[ProfilerActivity.CUDA])
 
 
-def device_profile(prof, wall_s: float) -> dict:
+def device_profile(prof, wall_s: float, top: int = 0) -> dict:
     """The device's busy time (the union of kernel, copy and set
     intervals) over ``wall_s``, and each serve kernel's launches and
-    device milliseconds, from ``prof``'s trace."""
+    device milliseconds, from ``prof``'s trace; with ``top``, also the
+    ``top`` kernels by device time as [name, launches, ms]."""
     prof.export_chrome_trace(str(SERVE_PROFILE))
     try:
         events = [e for e in json.loads(SERVE_PROFILE.read_text())["traceEvents"]
@@ -1891,10 +1934,20 @@ def device_profile(prof, wall_s: float) -> dict:
             if e["cat"] == "kernel" and any(n in e["name"] for n in names):
                 kernels[k][0] += 1
                 kernels[k][1] += e["dur"] / 1e3
-    return {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
-            "copy_ms": sum(e["dur"] for e in events if e["cat"] == "gpu_memcpy") / 1e3,
-            "n_events": len(events), "kernels": kernels}
+    by_name = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            n = by_name.setdefault(e["name"][:80], [0, 0.0])
+            n[0] += 1
+            n[1] += e["dur"] / 1e3
+    out = {"wall_ms": wall_s * 1e3, "busy_ms": busy_us / 1e3,
+           "idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+           "copy_ms": sum(e["dur"] for e in events if e["cat"] == "gpu_memcpy") / 1e3,
+           "n_events": len(events), "kernels": kernels}
+    if top:
+        out["top_kernels"] = [[k, *v] for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1][1])[:top]]
+    return out
 
 
 def oms_in_process(args, stdin, *, profile=False):
@@ -2499,6 +2552,224 @@ def phase_analyze() -> None:
     log(f"[analyze] phase 17 (analyze) in {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dense LM serve path
+# ---------------------------------------------------------------------------
+
+
+def rel_err(a, ref) -> float:
+    """max |a - ref| / max |ref|, in float32 on the host."""
+    a, ref = a.float().cpu(), ref.float().cpu()
+    return float((a - ref).abs().max() / ref.abs().max())
+
+
+def lm_width_check(torch, name: str) -> dict:
+    """``name`` at full width and LM_WIDTH_LAYERS layers in float32: a
+    prefill and one decode step on the card and on the CPU on the same
+    weights. The weights are drawn on the card and copied to the host (the
+    host's truncated-normal draw takes ~75 ns an element, minutes for these
+    widths). Returns the logits' errors."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(name).scaled(n_layers=LM_WIDTH_LAYERS, dtype="float32")
+    B, S = LM_WIDTH_B, LM_WIDTH_S
+    model = build_model(cfg, max_seq=S + 1, chunk=S)
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+    step = {"token": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = (0.1 * rng.standard_normal(
+            (B, LM_VISION_TOKENS, cfg.d_model))).astype(np.float32)
+        ar = np.arange(S)
+        batch["positions3"] = np.ascontiguousarray(np.broadcast_to(
+            np.stack([ar, ar // 2, ar % 3])[:, None], (3, B, S))).astype(np.int32)
+        step["positions3"] = np.full((3, B, 1), S, np.int32)
+
+    def run(params, dev):
+        on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        db = {k: torch.from_numpy(v).to(dev) for k, v in step.items()}
+        logits, cache = model.prefill(params, on, model.init_cache(B, S + 1, device=dev))
+        logits_d, _ = model.decode_step(params, cache, {**db, "index": S})
+        return logits.cpu(), logits_d.cpu()
+
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(DEVICE).manual_seed(SEED), DEVICE)
+    n = sum(p.numel() for p in params.parameters())
+    card = run(params, DEVICE)
+    host = run(params.to("cpu"), "cpu")
+    del params
+    errs = {"prefill": rel_err(card[0], host[0]), "decode": rel_err(card[1], host[1])}
+    for (what, e), logits in zip(errs.items(), card):
+        require(e < LM_WIDTH_TOL and bool(torch.isfinite(logits).all()),
+                f"{name} {what} logits: card against CPU {e:.3e} "
+                f"(max |Δ| / max |ref|, bound {LM_WIDTH_TOL}), finite "
+                f"{bool(torch.isfinite(logits).all())}")
+    log(f"[lm] {name} full width, {LM_WIDTH_LAYERS} layers, {n / 1e9:.3f} B params, "
+        f"float32: prefill {B}x{S} logits card vs CPU {errs['prefill']:.3e}, decode "
+        f"{errs['decode']:.3e} (bound {LM_WIDTH_TOL}; {time.perf_counter() - t0:.1f}s)")
+    return errs
+
+
+def lm_full_model(torch) -> dict:
+    """LM_ARCH at full width and depth in bf16 on the card: parameter
+    counts, the prefill of LM_BATCH x LM_PROMPT (CUDA events, median of
+    LM_PREFILL_ITERS after a warm-up) and LM_GEN greedy decode steps at
+    index LM_PROMPT + i (CUDA events around each step: decode_step and the
+    argmax), each against its bound from ``utils/roofline.py``; then the
+    decode of token LM_PROMPT + 1 against a full forward over it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import roofline as R
+    cfg = get_config(LM_ARCH)
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    model = build_model(cfg, max_seq=P + G, chunk=min(512, P))
+    counts = R.lm_param_counts(cfg)
+    bpe = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = model.init_params(torch.Generator(DEVICE).manual_seed(SEED), DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_padded = sum(p.numel() for p in params.parameters())
+        prompt = torch.randint(0, cfg.vocab_size, (B, P), device=DEVICE,
+                               generator=torch.Generator(DEVICE).manual_seed(SEED + 1))
+        cache = model.init_cache(B, P + G, device=DEVICE)
+        cache_bytes = sum(t.numel() * t.element_size() for c in cache.values()
+                          for t in c.values())
+
+        def prefill():
+            return model.prefill(params, {"tokens": prompt}, cache)
+
+        prefill_ms = cuda_ms(prefill, iters=LM_PREFILL_ITERS)
+        logits, _ = prefill()
+        token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        first = token
+        events = []
+        for i in range(G):
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            logits, _ = model.decode_step(params, cache, {"token": token, "index": P + i})
+            token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+            ev[1].record()
+            events.append(ev)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(logits).all()), "decode logits are not finite")
+        step_ms = [a.elapsed_time(b) for a, b in events]
+
+        # the device's busy share: one prefill, then LM_PROFILE_STEPS steps
+        prof_cache = model.init_cache(B, P + G, device=DEVICE)
+        profiles = {}
+        for what in ("prefill", "decode"):
+            torch.cuda.synchronize()
+            with serve_profiler(torch) as prof:
+                t0 = time.perf_counter()
+                if what == "prefill":
+                    model.prefill(params, {"tokens": prompt}, prof_cache)
+                else:
+                    tok = first
+                    for i in range(LM_PROFILE_STEPS):
+                        lg, _ = model.decode_step(params, prof_cache,
+                                                  {"token": tok, "index": P + i})
+                        tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            profiles[what] = device_profile(prof, wall, top=LM_PROFILE_TOP)
+            profiles[what].pop("kernels")
+        del prof_cache
+
+        # decode against the full forward over the prompt and its first token
+        c1 = model.init_cache(B, P + 1, device=DEVICE)
+        model.prefill(params, {"tokens": prompt}, c1)
+        logits_d, _ = model.decode_step(params, c1, {"token": first, "index": P})
+        hid, _ = T.forward(params, cfg, torch.cat([prompt, first], 1), chunk=model.chunk)
+        ref = T.lm_head(params, cfg, hid[:, -1:])
+        decode_err = rel_err(logits_d, ref)
+        peak = torch.cuda.max_memory_allocated()
+        del params, cache, c1, hid
+    require(decode_err < LM_DECODE_TOL,
+            f"{LM_ARCH} bf16 decode of token {P + 1} against the full forward: "
+            f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL})")
+
+    pre = R.lm_step_roofline(cfg, B, P, P)
+    dec = [R.lm_step_roofline(cfg, B, 1, P + i + 1) for i in range(G)]
+    med = statistics.median(step_ms)
+    out = {
+        "arch": LM_ARCH, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "params_real": counts["total"], "params_padded": n_padded,
+        "param_bytes_real": counts["total"] * bpe, "param_bytes_padded": n_padded * bpe,
+        "init_s": init_s, "kv_cache_bytes": cache_bytes,
+        "prefill": {"batch": B, "prompt": P, "ms": prefill_ms,
+                    "tokens_per_s": B * P / (prefill_ms / 1e3),
+                    "flops": pre.flops, "bound_ms": pre.t_bound * 1e3,
+                    "bound_by": pre.bound_by,
+                    "mfu": pre.flops / (prefill_ms / 1e3) / R.PEAK_FLOPS_BF16},
+        "decode": {"batch": B, "steps": G, "context": [P + 1, P + G],
+                   "ms_median": med, "ms_mean": statistics.fmean(step_ms),
+                   "ms_min": min(step_ms), "ms_max": max(step_ms),
+                   "tokens_per_s": B / (med / 1e3),
+                   "hbm_bound_ms_median": statistics.median(r.t_memory for r in dec) * 1e3,
+                   "bound_by": dec[G // 2].bound_by,
+                   "hbm_bound_share": sum(r.t_memory for r in dec) * 1e3 / sum(step_ms)},
+        "decode_vs_full": {"max_abs_err_over_max_ref": decode_err, "bound": LM_DECODE_TOL},
+        "device_profile": {"prefill": profiles["prefill"],
+                           f"decode_{LM_PROFILE_STEPS}_steps": profiles["decode"]},
+        "peak_bytes": peak, "peak_bytes_above_baseline": peak - base,
+    }
+    log(f"[lm] {LM_ARCH} bf16, {cfg.n_layers} layers: {counts['total'] / 1e9:.3f} B params "
+        f"real ({out['param_bytes_real'] / 1e9:.2f} GB), {n_padded / 1e9:.3f} B padded "
+        f"({out['param_bytes_padded'] / 1e9:.2f} GB); init on the card {init_s:.2f}s")
+    log(f"[lm] prefill {B}x{P}: {prefill_ms:.3f} ms (median of {LM_PREFILL_ITERS}), "
+        f"{out['prefill']['tokens_per_s']:.0f} tok/s, {pre.flops / 1e12:.2f} TFLOP, bound "
+        f"{pre.t_bound * 1e3:.3f} ms ({pre.bound_by}), MFU {out['prefill']['mfu']:.4f}")
+    log(f"[lm] decode B={B}, context {P + 1}..{P + G}: {med:.3f} ms a step (median of "
+        f"{G}; mean {out['decode']['ms_mean']:.3f}, min {min(step_ms):.3f}, max "
+        f"{max(step_ms):.3f}), {out['decode']['tokens_per_s']:.0f} tok/s; HBM bound "
+        f"{out['decode']['hbm_bound_ms_median']:.3f} ms, share "
+        f"{out['decode']['hbm_bound_share']:.4f}")
+    for what, pr in profiles.items():
+        log(f"[lm] device profile, {what}"
+            f"{f' ({LM_PROFILE_STEPS} steps)' if what == 'decode' else ''}: busy "
+            f"{pr['busy_ms']:.3f} of {pr['wall_ms']:.3f} ms wall, idle share "
+            f"{pr['idle_share']:.4f}, {pr['n_events']} device events; top kernels "
+            f"[name, launches, ms]: {json.dumps(pr['top_kernels'])}")
+    log(f"[lm] decode of token {P + 1} against the full forward over {P + 1}: "
+        f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL}); peak device memory "
+        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the phase's "
+        f"baseline); KV cache {cache_bytes / 1e9:.3f} GB")
+    return out
+
+
+def phase_lm(torch, env) -> dict:
+    """Phase 19: the width checks in float32 (TF32 off), ``python -m
+    repro_torch.launch.serve`` at LM_SERVE_ARGS as a subprocess (exits 0,
+    prints its ``[serve]`` line), then the full model in process. Returns
+    the ``lm`` JSON line's object."""
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        width = {name: lm_width_check(torch, name) for name in LM_WIDTH_ARCHS}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    o, _, t = oms_cli(LM_SERVE_ARGS, "lm serve", module="serve")
+    lines = [x for x in o.splitlines() if x.startswith("[serve] generated ")]
+    require(len(lines) == 1 and f"generated {LM_BATCH * LM_GEN} tokens" in lines[0],
+            f"`serve {' '.join(map(str, LM_SERVE_ARGS))}` printed no [serve] line:\n{o}")
+    log(f"[lm] `serve {' '.join(map(str, LM_SERVE_ARGS))}` exited 0 (process {t:.1f}s): "
+        f"{lines[0]}")
+    full = lm_full_model(torch)
+    dt = time.perf_counter() - t_phase
+    log(f"[lm] phase 19 in {dt:.1f}s")
+    return {"card": env["smi"], "width_check_float32": width,
+            "serve_cli": {"args": " ".join(map(str, LM_SERVE_ARGS)), "line": lines[0],
+                          "process_s": t},
+            **full, "phase_s": dt}
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
@@ -2575,12 +2846,14 @@ def main() -> int:
                   *(REQUESTS_FILE.with_name(f"smoke_requests_{x}.jsonl")
                     for x in ("head", "twice", "new", "in_process"))):
             f.unlink(missing_ok=True)
+    lm = phase_lm(torch, env)
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         if k["name"] in ("fused_search", "fused_search_mxu"):
             k["topk_ms"] = {kk: v for kk, v in topk_ms.items() if kk.startswith(k["name"] + " ")}
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": kernels}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,13 @@ absent. The TPU kernels on the resident search path are hand-written CUDA
 kernels under ``repro_torch/kernels/**/csrc``; each has a plain PyTorch
 version beside it, used when its tensors lie on the CPU.
 
-Entry points (``OMSPipeline`` and friends) run on the card unless the caller
-passes ``device="cpu"``; see :func:`repro_torch._device.resolve_device`.
+The dense LM serve path (``repro_torch.configs``, ``repro_torch.models``,
+``repro_torch.launch.serve``) runs no TPU kernel in the reference and is
+plain PyTorch here.
+
+Entry points (``OMSPipeline`` and friends, ``Model``) run on the card
+unless the caller passes ``device="cpu"``; see
+:func:`repro_torch._device.resolve_device`.
 """
 from repro_torch._device import resolve_device
 

@@ -1,8 +1,9 @@
 """Carry state between the reference and the port as numpy arrays.
 
 Packed HVs travel as uint32 (the reference's dtype) and live in the port as
-int32 tensors with the same bit patterns. Nothing here imports the
-reference package: callers hand over ``np.asarray`` of its arrays.
+int32 tensors with the same bit patterns; an LM's params and caches travel
+as nested dicts of arrays. Nothing here imports the reference package:
+callers hand over ``np.asarray`` of its arrays.
 """
 from __future__ import annotations
 
@@ -10,12 +11,14 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.blocking import ReferenceDB, reference_db_from_arrays
 from repro_torch.core.cascade import CascadeOutput
 from repro_torch.core.encoding import Codebooks
 from repro_torch.core.fdr import FDRResult
 from repro_torch.core.search import SearchResult
+from repro_torch.models import transformer as T
 
 
 def packed_to_torch(words, device="cpu") -> torch.Tensor:
@@ -84,3 +87,59 @@ def cascade_output_to_numpy(out: CascadeOutput) -> dict:
             "scanned_rows_total": int(out.scanned_rows_total),
             "scanned_bytes_total": out.scanned_bytes_total,
             "stage1": stage(out.stage1), "stage2": stage(out.stage2)}
+
+
+# ---------------------------------------------------------------------------
+# LM state (the reference's params and caches as nested dicts of numpy)
+# ---------------------------------------------------------------------------
+
+
+def _leaf_to_torch(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor. ``np.asarray`` of a bf16 JAX array has the
+    ``ml_dtypes`` bfloat16 dtype: its bits travel as uint16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def lm_params_from_reference(tree, cfg, device="cpu"):
+    """The reference's LM params (stacked per block type: leaf ``[j]`` is
+    the ``j``-th layer of that type) -> the port's ``LMParams``, one block
+    per layer in ``block_layout`` order."""
+    def module(d):
+        if all(isinstance(v, torch.Tensor) for v in d.values()):
+            return nn.ParameterDict(d)
+        return nn.ModuleDict({k: module(v) for k, v in d.items()})
+
+    seen: dict[str, int] = {}
+    blocks = []
+    for btype in T.block_layout(cfg):
+        j = seen.get(btype, 0)
+        seen[btype] = j + 1
+        blocks.append(module(_map_tree(lambda a: _leaf_to_torch(np.asarray(a)[j], device),
+                                       tree[btype])))
+    unembed = tree.get("unembed")
+    return T.LMParams(
+        _leaf_to_torch(tree["embed"], device),
+        module(_map_tree(lambda a: _leaf_to_torch(a, device), tree["final_norm"])),
+        blocks, None if unembed is None else _leaf_to_torch(unembed, device))
+
+
+def lm_cache_from_reference(tree, device="cpu") -> dict:
+    """The reference's per-type stacked cache -> the port's (same layout)."""
+    return _map_tree(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def lm_cache_to_numpy(cache) -> dict:
+    """The port's cache as nested dicts of numpy arrays; bfloat16 leaves
+    come back as float32 (exact: numpy has no bfloat16 without
+    ``ml_dtypes``)."""
+    return _map_tree(lambda t: (t.float() if t.dtype == torch.bfloat16 else t)
+                     .detach().cpu().numpy(), cache)

@@ -1,0 +1,252 @@
+"""Decoder-only assembly for the dense, MLA and VLM families.
+
+Counterpart of ``repro.models.transformer``. The reference stores layers
+stacked per block type and runs them with ``jax.lax.scan`` (superblocks for
+repeating patterns, a tail scan for the remainder); here the weights are
+one ``nn.ModuleDict`` per layer and the forward is one Python loop over
+``block_layout(cfg)``, which serves every pattern alike.
+
+Caches keep the reference's per-type stacked layout: cache["attn_block"]["k"]
+has shape (n_attn_block_layers, B, S_max, KV, hd), etc. A layer reads and
+writes its own slice of the stack in place.
+
+The recurrent blocks (``rec``, ``mlstm``, ``slstm``) and MoE FFNs are
+ROADMAP queue 1 item 9 (b): they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+SLICE_B = "ROADMAP queue 1 item 9 (b)"
+PF_MLSTM = 2          # mLSTM up-projection factor (the reference's xlstm.py)
+
+# ---------------------------------------------------------------------------
+# layout helpers
+# ---------------------------------------------------------------------------
+
+
+def block_layout(cfg: ArchConfig) -> list[str]:
+    """Per-layer block type, length n_layers."""
+    if not cfg.block_pattern:
+        base = "mla_block" if cfg.mla else "attn_block"
+        return [base] * cfg.n_layers
+    pat = list(cfg.block_pattern)
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def type_counts(cfg: ArchConfig) -> dict[str, int]:
+    lay = block_layout(cfg)
+    return {t: lay.count(t) for t in dict.fromkeys(lay)}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet ({SLICE_B})")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
+    h = cfg.n_heads
+    m = getattr(cfg, "tp_pad_heads_to", 0)
+    if m and h % m:
+        h = -(-h // m) * m      # pad: extra heads have zeroed output rows
+    return L.AttnDims(cfg.d_model, h, cfg.n_kv_heads,
+                      cfg.resolved_head_dim, n_real_heads=cfg.n_heads)
+
+
+def init_block(generator, cfg: ArchConfig, btype: str, dtype, device) -> nn.ModuleDict:
+    D = cfg.d_model
+    if cfg.moe is not None:
+        raise _not_ported(f"MoE FFN ({cfg.name})")
+    p = nn.ModuleDict({"ln1": L.norm_init(D, cfg.norm, dtype, device)})
+    if btype in ("attn_block", "attn"):   # "attn": hybrid local-attention block
+        p["attn"] = L.attn_init(generator, _attn_dims(cfg), dtype, device)
+    elif btype == "mla_block":
+        p["attn"] = L.mla_init(generator, cfg, dtype, device)
+    elif btype in ("rec", "mlstm", "slstm"):
+        raise _not_ported(f"block type {btype!r} ({cfg.name})")
+    else:
+        raise ValueError(btype)
+
+    if cfg.ffn != "none":
+        p["ln2"] = L.norm_init(D, cfg.norm, dtype, device)
+        p["ffn"] = L.ffn_init(generator, D, cfg.d_ff, cfg.ffn, dtype, device)
+    return p
+
+
+class LMParams(nn.Module):
+    """A decoder's weights: ``embed`` (V, D), ``final_norm``, ``unembed``
+    (D, V; None when the embeddings are tied) and one block per layer in
+    ``block_layout`` order."""
+
+    def __init__(self, embed, final_norm, blocks, unembed=None):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.final_norm = final_norm
+        self.blocks = nn.ModuleList(blocks)
+        self.register_parameter(
+            "unembed", None if unembed is None else nn.Parameter(unembed))
+
+
+def init_params(generator, cfg: ArchConfig, device) -> LMParams:
+    dtype = getattr(torch, cfg.dtype)
+    embed = L.embed_init(generator, (cfg.vocab_size, cfg.d_model), dtype, device)
+    unembed = None
+    if not cfg.tie_embeddings:
+        unembed = L.dense_init(generator, (cfg.d_model, cfg.vocab_size), dtype, device)
+    blocks = [init_block(generator, cfg, t, dtype, device) for t in block_layout(cfg)]
+    return LMParams(embed, L.norm_init(cfg.d_model, cfg.norm, dtype, device),
+                    blocks, unembed)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None):
+    """Per-type stacked decode caches (every type the reference has)."""
+    dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+    hd = cfg.resolved_head_dim
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+
+    cache = {}
+    for btype, n in type_counts(cfg).items():
+        if btype in ("attn_block", "attn"):
+            S = min(max_seq, cfg.local_window) if (
+                btype == "attn" and cfg.local_window) else max_seq
+            cache[btype] = {"k": zeros((n, batch, S, cfg.n_kv_heads, hd)),
+                            "v": zeros((n, batch, S, cfg.n_kv_heads, hd))}
+        elif btype == "mla_block":
+            m = cfg.mla
+            cache[btype] = {"ckv": zeros(
+                (n, batch, max_seq, m.kv_lora_rank + m.qk_rope_head_dim))}
+        elif btype == "rec":
+            w = cfg.lru_width or cfg.d_model
+            cache[btype] = {"h": zeros((n, batch, w), torch.float32),
+                            "conv": zeros((n, batch, cfg.conv_width - 1, w))}
+        elif btype == "mlstm":
+            d_in = PF_MLSTM * cfg.d_model
+            dh = d_in // cfg.n_heads
+            cache[btype] = {
+                "C": zeros((n, batch, cfg.n_heads, dh, dh), torch.float32),
+                "n": zeros((n, batch, cfg.n_heads, dh), torch.float32),
+                "m": full((n, batch, cfg.n_heads), -1e30),
+                "conv": zeros((n, batch, cfg.conv_width - 1, d_in)),
+            }
+        elif btype == "slstm":
+            D = cfg.d_model
+            cache[btype] = {"c": zeros((n, batch, D), torch.float32),
+                            "n": zeros((n, batch, D), torch.float32),
+                            "h": zeros((n, batch, D), torch.float32),
+                            "m": full((n, batch, D), -1e30)}
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def apply_block(p, x, btype, cfg: ArchConfig, cos_sin, *, cache=None,
+                cache_index=None, chunk=1024):
+    """One residual block. Returns (x, cache_slice)."""
+    if cfg.moe is not None:
+        raise _not_ported(f"MoE FFN ({cfg.name})")
+    h = L.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
+
+    if btype in ("attn_block", "attn"):
+        window = cfg.local_window if btype == "attn" else 0
+        o, new_c = L.attn_apply(
+            p["attn"], h, cos_sin, dims=_attn_dims(cfg),
+            causal=True, window=window, cache=cache,
+            cache_index=cache_index, chunk=chunk,
+            use_rope=cfg.rope_theta > 0)
+    elif btype == "mla_block":
+        o, new_c = L.mla_apply(p["attn"], h, cos_sin, cfg=cfg, cache=cache,
+                               cache_index=cache_index, chunk=chunk)
+    elif btype in ("rec", "mlstm", "slstm"):
+        raise _not_ported(f"block type {btype!r} ({cfg.name})")
+    else:
+        raise ValueError(btype)
+
+    x = x + o
+    if cfg.ffn != "none":
+        h2 = L.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
+        x = x + L.ffn_apply(p["ffn"], h2, cfg.ffn)
+    return x, new_c
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def forward(params: LMParams, cfg: ArchConfig, tokens, *, positions=None,
+            positions3=None, vision_embeds=None, cache=None,
+            cache_index=None, chunk=1024):
+    """Returns (hidden (B,S,D), cache). Logits via lm_head().
+
+    With a cache and no ``cache_index`` the tokens are prefilled into it
+    from position 0; with ``cache_index`` (an int) they are decoded at that
+    position. The cache is written in place and returned.
+    """
+    B, S = tokens.shape
+    x = params.embed[tokens.long()]
+    if vision_embeds is not None:
+        nv = vision_embeds.shape[1]
+        x = torch.cat([vision_embeds.to(x.dtype), x[:, nv:]], dim=1)
+
+    if positions is None:
+        base = cache_index if cache_index is not None else 0
+        positions = (base + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    cos_sin = None
+    if cfg.rope_theta > 0:
+        cos_sin = L.rope_cos_sin(cfg, positions, positions3=positions3)
+
+    seen: dict[str, int] = {}
+    for p, btype in zip(params.blocks, block_layout(cfg)):
+        j = seen.get(btype, 0)
+        seen[btype] = j + 1
+        c = None if cache is None else {n: t[j] for n, t in cache[btype].items()}
+        x, _ = apply_block(p, x, btype, cfg, cos_sin, cache=c,
+                           cache_index=cache_index, chunk=chunk)
+
+    x = L.norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
+    return x, cache
+
+
+def lm_head(params: LMParams, cfg: ArchConfig, hidden):
+    w = params.embed.T if cfg.tie_embeddings else params.unembed
+    return torch.einsum("bsd,dv->bsv", hidden, w)
+
+
+def lm_loss(params: LMParams, cfg: ArchConfig, hidden, targets, mask, *,
+            chunk: int = 512):
+    """Chunked cross-entropy over the sequence (bounds the (B,chunk,V)
+    logits intermediate)."""
+    S = hidden.shape[1]
+    chunk = min(chunk, S)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = hidden.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        h, t = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        m = mask[:, c0:c0 + chunk].float()
+        logits = lm_head(params, cfg, h).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+        total = total + torch.sum((logz - gold) * m)
+        count = count + torch.sum(m)
+    return total / torch.clamp(count, min=1.0)

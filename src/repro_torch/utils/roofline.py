@@ -1,4 +1,5 @@
-"""Roofline terms of the port's kernels on the NVIDIA H100 (SXM5, 80 GB).
+"""Roofline terms of the port's kernels and LM steps on the NVIDIA H100
+(SXM5, 80 GB).
 
 Counterpart of both ``repro.utils.roofline`` and ``repro.utils.hlo_cost``.
 The reference prices a compiled program by parsing XLA's optimised HLO
@@ -25,6 +26,10 @@ Peaks (per card):
     bidirectional;
   * 132 SMs at a 1,980 MHz maximum SM clock — the datasheet's SXM5 part,
     the default when the caller has not read the card's own clock.
+
+The LM path (``models/``, ``launch/serve.py``) launches none of the
+kernels above; ``lm_step_roofline`` counts one prefill or decode step of
+the published model the same way.
 
 Terms (seconds; ``flops`` here are the integer or tensor-core operations
 of the route that does them, at ``ops_per_s``):
@@ -192,3 +197,59 @@ def hdencode_roofline(n_spectra: int, n_peaks: int, n_words: int,
     return Roofline(flops=ops, hbm_bytes=nbytes, coll_bytes=0.0, chips=1,
                     ops_per_s=INT32_OPS_PER_CLK_SM * n_sms * clock_hz,
                     route="int32 ALU")
+
+
+_DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
+
+
+def lm_param_counts(cfg) -> dict[str, int]:
+    """Parameters of the published dense decoder (real heads: no TP
+    padding): ``embed``, ``unembed`` (0 when tied), ``layer`` (one block's
+    weights, norms and biases included), ``final_norm`` and ``total``."""
+    if cfg.mla is not None or cfg.moe is not None or cfg.block_pattern:
+        raise NotImplementedError(f"{cfg.name}: only dense attention blocks are counted")
+    D, F = cfg.d_model, cfg.d_ff
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    norm = D * (2 if cfg.norm == "layernorm" else 1)
+    ffn = 3 * D * F if cfg.ffn == "swiglu" else 2 * D * F + F + D
+    layer = 2 * D * H * hd + 2 * D * KV * hd + ffn + 2 * norm
+    c = {"embed": cfg.vocab_size * D,
+         "unembed": 0 if cfg.tie_embeddings else D * cfg.vocab_size,
+         "layer": layer, "final_norm": norm}
+    c["total"] = c["embed"] + c["unembed"] + cfg.n_layers * layer + norm
+    return c
+
+
+def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline:
+    """One step of the published dense decoder (real heads) on ``batch``
+    sequences: ``new_tokens`` positions each, the last at position
+    ``context - 1`` (a prefill of S: new_tokens = context = S; a decode
+    step at context L: new_tokens = 1), the lm_head on the last position
+    only, as ``Model.prefill`` and ``decode_step`` apply it.
+
+    Operations (bf16 tensor cores): 2 per weight per token through the
+    blocks' matmuls, 4 * hd per (query, key) pair per head for QK^T and PV
+    under the causal mask, 2 * D * V per logit row. Bytes: each weight read
+    once (a tied embedding once, for the lm_head; untied, only the prompt's
+    rows of it), the cached K/V of the earlier positions read, the new K/V
+    written, the tokens read and the logits written."""
+    c = lm_param_counts(cfg)
+    bpe = _DTYPE_BYTES[cfg.dtype]
+    D, V, hd = cfg.d_model, cfg.vocab_size, cfg.resolved_head_dim
+    L, H, KV = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
+    tokens = batch * new_tokens
+    pairs = batch * (new_tokens * context - new_tokens * (new_tokens - 1) // 2)
+    norms = 2 * D * (2 if cfg.norm == "layernorm" else 1)
+    bias = cfg.d_ff + D if cfg.ffn == "mlp_gelu" else 0
+    matmul_weights = c["layer"] - norms - bias
+    flops = (2.0 * tokens * L * matmul_weights + 4.0 * L * H * hd * pairs
+             + 2.0 * D * V * batch)
+    head = V * D
+    gathered = 0 if cfg.tie_embeddings else min(tokens, V) * D
+    kv_row = L * 2 * KV * hd
+    nbytes = bpe * (L * c["layer"] + c["final_norm"] + head + gathered
+                    + batch * (context - new_tokens) * kv_row + tokens * kv_row
+                    + batch * V) + 4 * tokens
+    return Roofline(flops=flops, hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
+                    model_flops=flops, ops_per_s=PEAK_FLOPS_BF16,
+                    route="bf16 tensor cores")

@@ -96,6 +96,23 @@ def test_distributed_modules_are_covered():
             "repro_torch.distributed.collectives"} <= mods
 
 
+def test_lm_modules_are_covered():
+    """The static scan and the jax-free import reach the LM serve path: the
+    configs (all ten archs), the layers, the transformer, the Model and
+    ``launch/serve.py``."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    assert {"configs/__init__.py", "configs/base.py", "configs/registry.py",
+            "configs/shapes.py", "configs/llama3_2_3b.py", "configs/qwen2_vl_7b.py",
+            "models/__init__.py", "models/layers.py", "models/transformer.py",
+            "models/model.py", "launch/serve.py"} <= files
+    assert len([f for f in files if f.startswith("configs/")]) == 14
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch.configs", "repro_torch.configs.registry",
+            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.model", "repro_torch.launch.serve"} <= mods
+
+
 def test_launcher_runs_with_jax_absent(tmp_path):
     """``python -m repro_torch.launch.oms`` with jax and the reference
     package made unimportable: ``queries`` runs, ``build`` without

@@ -1,0 +1,363 @@
+"""The port's LM configs and layers against the reference's, on the CPU in
+float32: the same numpy inputs, drawn from a seed, through both packages,
+within max |Δ| / max |ref| < 1e-4 (``_torch_lm.TOL``).
+
+Covered: the config registry, ``reduced_for_smoke`` and the shapes table;
+norms, RoPE, M-RoPE, ``attn_apply`` in every mode, ``mla_apply``, both
+FFNs, the init and the cache writes' clamp; every cache type's layout and
+the bf16 carry; ``param_specs`` at full size; the families of ROADMAP
+item 9 (b) raise. ``test_torch_model_forward.py`` holds the models."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import dataclasses  # noqa: E402
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
+from repro.configs.base import reduced_for_smoke as ref_reduced  # noqa: E402
+from repro.models import build_model as ref_build_model  # noqa: E402
+from repro.models import layers as RL  # noqa: E402
+from repro.models import transformer as RT  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.configs.base import reduced_for_smoke  # noqa: E402
+from repro_torch.convert import lm_cache_from_reference, lm_cache_to_numpy  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import layers as PL  # noqa: E402
+from repro_torch.models import transformer as PT  # noqa: E402
+from _torch_lm import B, DENSE, TOL, rel_err, smoke_cfgs  # noqa: E402
+
+SLICE_B = ["olmoe-1b-7b", "deepseek-v2-lite-16b", "recurrentgemma-9b",
+           "xlstm-1.3b", "whisper-base"]
+
+
+def tree_both(tree):
+    return ({k: jnp.asarray(v) for k, v in tree.items()},
+            {k: torch.from_numpy(np.array(v)) for k, v in tree.items()})
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_registry_and_smoke_configs_equal_the_reference():
+    assert list_archs() == ref_list_archs() and len(list_archs()) == 10
+    for name in list_archs():
+        ref, port = ref_get_config(name), get_config(name)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), name
+        assert dataclasses.asdict(reduced_for_smoke(port)) == \
+            dataclasses.asdict(ref_reduced(ref)), name
+        assert port.resolved_head_dim == ref.resolved_head_dim
+    from repro.configs import shapes as ref_shapes
+    from repro_torch.configs import shapes
+    assert shapes.all_cells() == ref_shapes.all_cells()
+    assert {k: dataclasses.asdict(v) for k, v in shapes.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_shapes.SHAPES.items()}
+    for a, s in shapes.all_cells():
+        assert shapes.applicable(get_config(a), shapes.SHAPES[s]) == \
+            ref_shapes.applicable(ref_get_config(a), ref_shapes.SHAPES[s])
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_norm_apply(kind):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 48)).astype(np.float32) * 3 + 1
+    p = {"scale": rng.standard_normal(48).astype(np.float32),
+         "bias": rng.standard_normal(48).astype(np.float32)}
+    rp, pp = tree_both(p)
+    ref = RL.norm_apply(rp, jnp.asarray(x), kind, 1e-5)
+    assert rel_err(PL.norm_apply(pp, torch.from_numpy(x), kind, 1e-5), ref) < TOL
+    init = PL.norm_init(48, kind, torch.float32, "cpu")
+    ref_init = RL.norm_init(48, kind, jnp.float32)
+    assert set(init.keys()) == set(ref_init)
+    for n in ref_init:
+        assert np.array_equal(init[n].detach().numpy(), np.asarray(ref_init[n]))
+
+
+def test_rope_and_mrope():
+    rng = np.random.default_rng(1)
+    pos = rng.integers(0, 600, (2, 7)).astype(np.int32)
+    for hd, theta in ((16, 500000.0), (128, 10000.0)):
+        for r, p in zip(RL._rope_angles(jnp.asarray(pos), hd, theta),
+                        PL._rope_angles(torch.from_numpy(pos), hd, theta)):
+            assert np.max(np.abs(p.numpy() - np.asarray(r))) < 1e-4
+    x = rng.standard_normal((2, 7, 3, 16)).astype(np.float32)
+    cos, sin = RL._rope_angles(jnp.asarray(pos), 16, 10000.0)
+    for c, s in ((cos, sin), (cos[0], sin[0])):     # (B, S, hd) and (S, hd)
+        ref = RL.apply_rope(jnp.asarray(x), c, s)
+        port = PL.apply_rope(torch.from_numpy(x), torch.from_numpy(np.array(c)),
+                             torch.from_numpy(np.array(s)))
+        assert rel_err(port, ref) < TOL
+    # M-RoPE with distinct t / h / w streams, at the smoke and full widths
+    pos3 = np.stack([pos, pos // 3, pos % 5]).astype(np.int32)
+    for sections, hd in (((2, 3, 3), 16), ((16, 24, 24), 128)):
+        ref = RL._mrope_angles(jnp.asarray(pos3), sections, hd, 1e6)
+        port = PL._mrope_angles(torch.from_numpy(pos3), sections, hd, 1e6)
+        for r, p in zip(ref, port):
+            assert np.max(np.abs(p.numpy() - np.asarray(r))) < 1e-4
+    ref_cfg, cfg = smoke_cfgs("qwen2-vl-7b")
+    for kw in ({}, {"positions3": pos3}):
+        ref = RL.rope_cos_sin(ref_cfg, jnp.asarray(pos),
+                              **{k: jnp.asarray(v) for k, v in kw.items()})
+        port = PL.rope_cos_sin(cfg, torch.from_numpy(pos),
+                               **{k: torch.from_numpy(v) for k, v in kw.items()})
+        for r, p in zip(ref, port):
+            assert np.max(np.abs(p.numpy() - np.asarray(r))) < 1e-4
+    assert np.allclose(PL.sinusoidal_positions(40, 16).numpy(),
+                       np.asarray(RL.sinusoidal_positions(40, 16)))
+
+
+def _attn_params(rng, d: RL.AttnDims, bias: bool):
+    p = {"wq": rng.standard_normal((d.d_model, d.n_heads, d.head_dim)),
+         "wk": rng.standard_normal((d.d_model, d.n_kv_heads, d.head_dim)),
+         "wv": rng.standard_normal((d.d_model, d.n_kv_heads, d.head_dim)),
+         "wo": rng.standard_normal((d.n_heads, d.head_dim, d.d_model))}
+    p = {k: (v / np.sqrt(v.shape[0])).astype(np.float32) for k, v in p.items()}
+    if bias:
+        p.update(bq=rng.standard_normal((d.n_heads, d.head_dim)),
+                 bk=rng.standard_normal((d.n_kv_heads, d.head_dim)),
+                 bv=rng.standard_normal((d.n_kv_heads, d.head_dim)),
+                 bo=rng.standard_normal(d.d_model))
+        p = {k: np.asarray(v, np.float32) for k, v in p.items()}
+    return p
+
+
+def _cache(rng, Smax, d):
+    shape = (B, Smax, d.n_kv_heads, d.head_dim)
+    return {"k": rng.standard_normal(shape).astype(np.float32),
+            "v": rng.standard_normal(shape).astype(np.float32)}
+
+
+ATTN_DIMS = PL.AttnDims(48, 6, 2, 8)
+# (what, S, window, Smax of the cache (None: no cache), cache_index, chunk)
+ATTN_MODES = [
+    ("causal", 13, 0, None, None, 4),
+    ("causal, one chunk", 13, 0, None, None, 1024),
+    ("windowed", 13, 5, None, None, 4),
+    ("prefill into cache", 13, 0, 20, None, 8),
+    ("windowed prefill into a shorter ring", 13, 5, 5, None, 8),
+    ("decode", 1, 0, 20, 13, 1024),
+    ("windowed ring decode past the window", 1, 5, 5, 13, 1024),
+    ("decode past the cache's end (clamped write)", 1, 0, 12, 15, 1024),
+    ("decode at the cache's last slot", 1, 0, 12, 11, 1024),
+]
+
+
+@pytest.mark.parametrize("what,Sq,window,Smax,index,chunk", ATTN_MODES,
+                         ids=[m[0] for m in ATTN_MODES])
+@pytest.mark.parametrize("bias", [False, True])
+def test_attn_apply(what, Sq, window, Smax, index, chunk, bias):
+    rng = np.random.default_rng(2)
+    d = ATTN_DIMS
+    rp, pp = tree_both(_attn_params(rng, d, bias))
+    x = rng.standard_normal((B, Sq, d.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(Sq) + (index or 0), (B, Sq)).astype(np.int32)
+    r_cs = RL._rope_angles(jnp.asarray(pos), d.head_dim, 10000.0)
+    p_cs = PL._rope_angles(torch.from_numpy(pos), d.head_dim, 10000.0)
+    rc = pc = None
+    if Smax is not None:
+        rc, pc = tree_both(_cache(rng, Smax, d))
+    ref_out, ref_c = RL.attn_apply(rp, jnp.asarray(x), r_cs, dims=RL.AttnDims(48, 6, 2, 8),
+                                   window=window, cache=rc, cache_index=index,
+                                   chunk=chunk)
+    out, c = PL.attn_apply(pp, torch.from_numpy(x), p_cs, dims=d, window=window,
+                           cache=pc, cache_index=index, chunk=chunk)
+    assert rel_err(out, ref_out) < TOL
+    if Smax is not None:
+        for n in ("k", "v"):
+            assert rel_err(c[n], ref_c[n]) < TOL, n
+
+
+@pytest.mark.parametrize("start,s_new", [(0, 3), (9, 3), (10, 3), (50, 3), (11, 1),
+                                          (12, 1), (-2, 1), (-20, 2)])
+def test_cache_write_clamps_like_dynamic_update_slice(start, s_new):
+    buf = np.arange(2 * 12 * 3, dtype=np.float32).reshape(2, 12, 3)
+    new = -np.ones((2, s_new, 3), np.float32)
+    ref = jax.lax.dynamic_update_slice(jnp.asarray(buf), jnp.asarray(new), (0, start, 0))
+    port = torch.from_numpy(buf.copy())
+    PL._write(port, torch.from_numpy(new), start)
+    assert np.array_equal(port.numpy(), np.asarray(ref))
+
+
+def _mla_params(rng, cfg):
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    shapes = {"wq": (D, H, m.qk_nope_head_dim + m.qk_rope_head_dim),
+              "w_dkv": (D, m.kv_lora_rank + m.qk_rope_head_dim),
+              "w_uk": (m.kv_lora_rank, H, m.qk_nope_head_dim),
+              "w_uv": (m.kv_lora_rank, H, m.v_head_dim),
+              "wo": (H, m.v_head_dim, D)}
+    return {n: (rng.standard_normal(s) / np.sqrt(s[0])).astype(np.float32)
+            for n, s in shapes.items()}
+
+
+@pytest.mark.parametrize("mode", ["prefill", "prefill into cache", "decode",
+                                  "decode past the cache's end"])
+def test_mla_apply(mode):
+    rng = np.random.default_rng(3)
+    ref_cfg, cfg = smoke_cfgs("deepseek-v2-lite-16b")
+    m = cfg.mla
+    rp, pp = tree_both(_mla_params(rng, cfg))
+    Sq, index, Smax = {"prefill": (13, None, None), "prefill into cache": (13, None, 20),
+                       "decode": (1, 13, 20),
+                       "decode past the cache's end": (1, 25, 20)}[mode]
+    x = rng.standard_normal((B, Sq, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(Sq) + (index or 0), (B, Sq)).astype(np.int32)
+    r_cs = RL.rope_cos_sin(ref_cfg, jnp.asarray(pos))
+    p_cs = PL.rope_cos_sin(cfg, torch.from_numpy(pos))
+    rc = pc = None
+    if Smax is not None:
+        rc, pc = tree_both({"ckv": rng.standard_normal(
+            (B, Smax, m.kv_lora_rank + m.qk_rope_head_dim)).astype(np.float32)})
+    ref_out, ref_c = RL.mla_apply(rp, jnp.asarray(x), r_cs, cfg=ref_cfg, cache=rc,
+                                  cache_index=index, chunk=4)
+    out, c = PL.mla_apply(pp, torch.from_numpy(x), p_cs, cfg=cfg, cache=pc,
+                          cache_index=index, chunk=4)
+    assert rel_err(out, ref_out) < TOL
+    if Smax is not None:
+        assert rel_err(c["ckv"], ref_c["ckv"]) < TOL
+
+
+@pytest.mark.parametrize("kind", ["swiglu", "mlp_gelu"])
+def test_ffn_apply(kind):
+    rng = np.random.default_rng(4)
+    ref_p = jax.tree_util.tree_map(
+        np.asarray, RL.ffn_init(jax.random.PRNGKey(0), 48, 96, kind, jnp.float32))
+    ref_p = {k: v + (0.1 * rng.standard_normal(v.shape).astype(np.float32)
+                     if k.startswith("b_") else 0) for k, v in ref_p.items()}
+    rp, pp = tree_both(ref_p)
+    x = rng.standard_normal((B, 5, 48)).astype(np.float32) * 2
+    ref = RL.ffn_apply(rp, jnp.asarray(x), kind)
+    assert rel_err(PL.ffn_apply(pp, torch.from_numpy(x), kind), ref) < TOL
+    port_p = PL.ffn_init(torch.Generator().manual_seed(0), 48, 96, kind,
+                         torch.float32, "cpu")
+    assert {k: tuple(v.shape) for k, v in port_p.items()} == \
+        {k: v.shape for k, v in ref_p.items()}
+
+
+def test_init_draws_truncated_normal_and_zeroes_padded_heads():
+    g = torch.Generator().manual_seed(0)
+    d = PL.AttnDims(64, 8, 2, 16, n_real_heads=6)
+    p = PL.attn_init(g, d, torch.float32, "cpu")
+    real = PL.real_head_positions(d)
+    assert real.tolist() == RL.real_head_positions(
+        RL.AttnDims(64, 8, 2, 16, n_real_heads=6)).tolist() == [0, 1, 2, 4, 5, 6]
+    wo = p["wo"].detach()
+    pad = sorted(set(range(8)) - set(real.tolist()))
+    assert (wo[pad] == 0).all() and (wo[real.tolist()] != 0).all()
+    w = p["wq"].detach() * np.sqrt(64)
+    assert w.abs().max() <= 2.0 and abs(float(w.std()) - 0.88) < 0.05
+    e = PL.embed_init(g, (4096, 8), torch.bfloat16, "cpu")
+    # 2 * 0.02, rounded to bf16 as the cast rounds it
+    assert e.dtype == torch.bfloat16 and \
+        e.float().abs().max() <= torch.tensor(0.04).bfloat16().float()
+
+
+# ---------------------------------------------------------------------------
+# caches, parameter specs, the families still to port
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", [a for a in ref_list_archs() if a != "whisper-base"])
+def test_init_cache_keeps_the_reference_layout(name):
+    ref_cfg, cfg = smoke_cfgs(name)
+    ref = jax.tree_util.tree_map(np.asarray, RT.init_cache(ref_cfg, B, 40))
+    port = PT.init_cache(cfg, B, 40, "cpu")
+    assert ref.keys() == port.keys()
+    for t in ref:
+        assert ref[t].keys() == port[t].keys()
+        for n, a in ref[t].items():
+            p = port[t][n]
+            assert tuple(p.shape) == a.shape and str(p.dtype) == f"torch.{a.dtype}", (t, n)
+            assert np.array_equal(p.numpy(), a), (t, n)
+    rt = lm_cache_from_reference(ref)
+    assert all(torch.equal(rt[t][n], port[t][n]) for t in ref for n in ref[t])
+
+
+def test_bf16_leaves_carry_across_bit_for_bit():
+    a = jax.random.normal(jax.random.PRNGKey(0), (3, 5), jnp.bfloat16)
+    cache = lm_cache_from_reference({"attn_block": {"k": np.asarray(a)}})
+    t = cache["attn_block"]["k"]
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(lm_cache_to_numpy(cache)["attn_block"]["k"],
+                          np.asarray(a.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_param_specs_match_reference_at_full_size(name):
+    ref_specs = ref_build_model(ref_get_config(name)).param_specs()
+    port = build_model(get_config(name)).param_specs()
+    assert all(p.device.type == "meta" for p in port.parameters())
+
+    def same(t, spec):
+        return tuple(t.shape) == spec.shape and str(t.dtype) == f"torch.{spec.dtype}"
+
+    assert same(port.embed, ref_specs["embed"])
+    assert (port.unembed is None) == ("unembed" not in ref_specs)
+    if port.unembed is not None:
+        assert same(port.unembed, ref_specs["unembed"])
+    assert all(same(port.final_norm[n], s) for n, s in ref_specs["final_norm"].items())
+    layout = PT.block_layout(get_config(name))
+    assert len(port.blocks) == len(layout)
+    for blk, btype in zip(port.blocks, layout):
+        flat = jax.tree_util.tree_flatten_with_path(ref_specs[btype])[0]
+        assert len(flat) == len(list(blk.parameters()))
+        for path, spec in flat:
+            t = blk
+            for k in path:
+                t = t[k.key]
+            assert tuple(t.shape) == spec.shape[1:] and \
+                str(t.dtype) == f"torch.{spec.dtype}", (btype, path)
+
+
+@pytest.mark.parametrize("name", SLICE_B)
+def test_slice_b_families_raise(name):
+    _, cfg = smoke_cfgs(name)
+    m = build_model(cfg)
+    with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
+        m.init_params(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
+        m.param_specs()
+    if cfg.family == "audio":
+        with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
+            m.init_cache(B, 8, device="cpu")
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_roofline_counts_the_published_model(name):
+    """``lm_param_counts`` equals the parameters ``init_params`` makes with
+    the head padding off; ``lm_step_roofline`` counts a prefill and a
+    decode step by hand."""
+    from repro_torch.utils import roofline as R
+    cfg = get_config(name)
+    specs = build_model(cfg.scaled(tp_pad_heads_to=0)).param_specs()
+    counts = R.lm_param_counts(cfg)
+    assert counts["total"] == sum(p.numel() for p in specs.parameters())
+    assert counts["layer"] == sum(p.numel() for p in specs.blocks[0].parameters())
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    mm = 2 * D * H * hd + 2 * D * KV * hd + D * cfg.d_ff * (3 if cfg.ffn == "swiglu" else 2)
+    bpe = 2
+    kv_row = L * 2 * KV * hd
+    head = V * D + (0 if cfg.tie_embeddings else 8 * 4 * D)
+    pre = R.lm_step_roofline(cfg, 8, 4, 4)          # 8 sequences of 4
+    assert pre.flops == 2 * 32 * L * mm + 4 * L * H * hd * 8 * 10 + 2 * D * V * 8
+    assert pre.hbm_bytes == bpe * (L * counts["layer"] + counts["final_norm"] + head
+                                   + 32 * kv_row + 8 * V) + 4 * 32
+    dec = R.lm_step_roofline(cfg, 8, 1, 100)        # context 100: 99 cached
+    assert dec.flops == 2 * 8 * L * mm + 4 * L * H * hd * 8 * 100 + 2 * D * V * 8
+    head = V * D + (0 if cfg.tie_embeddings else 8 * D)
+    assert dec.hbm_bytes == bpe * (L * counts["layer"] + counts["final_norm"] + head
+                                   + 8 * 99 * kv_row + 8 * kv_row + 8 * V) + 4 * 8
+    assert dec.bound_by == "bytes"
+    assert R.lm_step_roofline(cfg, 8, 512, 512).bound_by == "operations"
