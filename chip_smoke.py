@@ -305,23 +305,34 @@ SHARD_KERNELS = STREAM_KERNELS
 SHARD_WARM_RUNS = 5
 STREAM_DEVICE_COUNTS = (2, 4)
 
-# Phase 19: the dense LM serve path (no OMS kernel runs on it). Width
-# checks: the five dense-path configs at full width and 2 layers in
-# float32 (TF32 off), a prefill of B x S (qwen2-vl with vision embeddings
-# and three position streams) and one decode step on the card against the
-# CPU on the same weights. Then Llama-3.2-3B at full width and depth in
-# bf16: the serve command as a subprocess, prefill and decode timed in
-# process, decode against the full forward.
-LM_WIDTH_ARCHS = ("llama3.2-3b", "deepseek-7b", "mistral-nemo-12b",
-                  "starcoder2-15b", "qwen2-vl-7b")
-LM_WIDTH_LAYERS = 2
+# Phase 19: the LM serve path of every family (no OMS kernel runs on it).
+# Width checks in float32 (TF32 off), each arch at full width cut to the
+# layers below (whisper-base whole, 6 + 6), a prefill of B x S (qwen2-vl
+# with vision embeddings and three position streams, whisper-base on S
+# frames) and one decode step on the card against the CPU on the same
+# weights; the MoE archs once at their default capacity factor (copies
+# drop, and must drop alike) and once at capacity_factor = n_experts. Then
+# `python -m repro_torch.launch.serve` at full width and depth in bf16 for
+# one arch per family, one subprocess after another; Llama-3.2-3B and
+# OLMoE-1B-7B in process: prefill and decode timed, decode against the
+# full forward.
+LM_WIDTH_LAYERS = {"llama3.2-3b": 2, "deepseek-7b": 2, "mistral-nemo-12b": 2,
+                   "starcoder2-15b": 2, "qwen2-vl-7b": 2, "olmoe-1b-7b": 2,
+                   "deepseek-v2-lite-16b": 2, "recurrentgemma-9b": 3,  # rec, rec, attn
+                   "xlstm-1.3b": 8,                                    # 7 mLSTM + 1 sLSTM
+                   "whisper-base": None}
 LM_WIDTH_B, LM_WIDTH_S = 2, 64
 LM_VISION_TOKENS = 4
 LM_WIDTH_TOL = 1e-3      # max |Δ| / max |ref| of the logits, float32
-LM_ARCH = "llama3.2-3b"
 LM_BATCH, LM_PROMPT, LM_GEN = 8, 512, 64
-LM_SERVE_ARGS = ["--arch", LM_ARCH, "--batch", LM_BATCH, "--prompt-len", LM_PROMPT,
-                 "--gen", LM_GEN]
+LM_SERVE_RUNS = {"llama3.2-3b": (LM_BATCH, LM_PROMPT, LM_GEN),
+                 "olmoe-1b-7b": (8, 512, 64), "recurrentgemma-9b": (4, 512, 32),
+                 "xlstm-1.3b": (4, 512, 32), "whisper-base": (8, 512, 64)}
+LM_FULL_ARCHS = ("llama3.2-3b", "olmoe-1b-7b")
+# OLMoE's decode against the full forward runs at capacity_factor = E, where
+# nothing drops; its (E, C, D) buffers then hold C = T * K slots an expert,
+# so it runs on this many of the sequences, in bf16 and again in float32.
+LM_MOE_CHECK_BATCH = {"bfloat16": 4, "float32": 2}
 LM_PREFILL_ITERS = 5
 LM_PROFILE_STEPS = 8     # decode steps under torch.profiler (device only)
 LM_PROFILE_TOP = 8       # kernels listed by device time
@@ -2563,18 +2574,29 @@ def rel_err(a, ref) -> float:
     return float((a - ref).abs().max() / ref.abs().max())
 
 
+def _with_capacity(cfg, capacity_factor: float):
+    import dataclasses
+    return cfg.scaled(moe=dataclasses.replace(cfg.moe, capacity_factor=capacity_factor))
+
+
 def lm_width_check(torch, name: str) -> dict:
-    """``name`` at full width and LM_WIDTH_LAYERS layers in float32: a
+    """``name`` at full width and LM_WIDTH_LAYERS[name] layers in float32: a
     prefill and one decode step on the card and on the CPU on the same
-    weights. The weights are drawn on the card and copied to the host (the
-    host's truncated-normal draw takes ~75 ns an element, minutes for these
-    widths). Returns the logits' errors."""
+    weights (a MoE arch at its own capacity factor and at n_experts). The
+    weights are drawn on the card and copied to the host (the host's
+    truncated-normal draw takes ~75 ns an element, minutes for these
+    widths). Returns the logits' errors, per capacity factor for MoE."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    cfg = get_config(name).scaled(n_layers=LM_WIDTH_LAYERS, dtype="float32")
+    cfg = get_config(name).scaled(dtype="float32")
+    if LM_WIDTH_LAYERS[name] is not None:
+        cfg = cfg.scaled(n_layers=LM_WIDTH_LAYERS[name])
+    variants = {"": cfg}
+    if cfg.moe is not None:
+        variants = {f"capacity_factor={cf:g}": _with_capacity(cfg, cf)
+                    for cf in (cfg.moe.capacity_factor, float(cfg.moe.n_experts))}
     B, S = LM_WIDTH_B, LM_WIDTH_S
-    model = build_model(cfg, max_seq=S + 1, chunk=S)
     rng = np.random.default_rng(SEED)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
     step = {"token": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)}
@@ -2585,48 +2607,131 @@ def lm_width_check(torch, name: str) -> dict:
         batch["positions3"] = np.ascontiguousarray(np.broadcast_to(
             np.stack([ar, ar // 2, ar % 3])[:, None], (3, B, S))).astype(np.int32)
         step["positions3"] = np.full((3, B, 1), S, np.int32)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = (0.1 * rng.standard_normal((B, S, cfg.d_model))
+                                 ).astype(np.float32)
 
     def run(params, dev):
-        on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        db = {k: torch.from_numpy(v).to(dev) for k, v in step.items()}
-        logits, cache = model.prefill(params, on, model.init_cache(B, S + 1, device=dev))
-        logits_d, _ = model.decode_step(params, cache, {**db, "index": S})
-        return logits.cpu(), logits_d.cpu()
+        out = {}
+        for what, c in variants.items():
+            model = build_model(c, max_seq=S + 1, chunk=S)
+            on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            db = {k: torch.from_numpy(v).to(dev) for k, v in step.items()}
+            logits, cache = model.prefill(params, on, model.init_cache(
+                B, S + 1, enc_seq=S, device=dev))
+            logits_d, _ = model.decode_step(params, cache, {**db, "index": S})
+            out[what] = (logits.cpu(), logits_d.cpu())
+        return out
 
     t0 = time.perf_counter()
-    params = model.init_params(torch.Generator(DEVICE).manual_seed(SEED), DEVICE)
+    params = build_model(cfg, max_seq=S + 1).init_params(
+        torch.Generator(DEVICE).manual_seed(SEED), DEVICE)
     n = sum(p.numel() for p in params.parameters())
     card = run(params, DEVICE)
     host = run(params.to("cpu"), "cpu")
     del params
-    errs = {"prefill": rel_err(card[0], host[0]), "decode": rel_err(card[1], host[1])}
-    for (what, e), logits in zip(errs.items(), card):
-        require(e < LM_WIDTH_TOL and bool(torch.isfinite(logits).all()),
-                f"{name} {what} logits: card against CPU {e:.3e} "
-                f"(max |Δ| / max |ref|, bound {LM_WIDTH_TOL}), finite "
-                f"{bool(torch.isfinite(logits).all())}")
-    log(f"[lm] {name} full width, {LM_WIDTH_LAYERS} layers, {n / 1e9:.3f} B params, "
-        f"float32: prefill {B}x{S} logits card vs CPU {errs['prefill']:.3e}, decode "
-        f"{errs['decode']:.3e} (bound {LM_WIDTH_TOL}; {time.perf_counter() - t0:.1f}s)")
-    return errs
+    errs = {}
+    for what in variants:
+        e = {"prefill": rel_err(card[what][0], host[what][0]),
+             "decode": rel_err(card[what][1], host[what][1])}
+        for (step_name, err), logits in zip(e.items(), card[what]):
+            require(err < LM_WIDTH_TOL and bool(torch.isfinite(logits).all()),
+                    f"{name} {what} {step_name} logits: card against CPU {err:.3e} "
+                    f"(max |Δ| / max |ref|, bound {LM_WIDTH_TOL}), finite "
+                    f"{bool(torch.isfinite(logits).all())}")
+        errs[what] = e
+        log(f"[lm] {name} full width, {cfg.n_layers} layers, {n / 1e9:.3f} B params, "
+            f"float32{' ' + what if what else ''}: prefill {B}x{S} logits card vs CPU "
+            f"{e['prefill']:.3e}, decode {e['decode']:.3e} (bound {LM_WIDTH_TOL})")
+    log(f"[lm] {name} width check {time.perf_counter() - t0:.1f}s")
+    return errs if cfg.moe is not None else errs[""]
 
 
-def lm_full_model(torch) -> dict:
-    """LM_ARCH at full width and depth in bf16 on the card: parameter
+def moe_decode_check(torch, params, cfg, prompt, first, chunk: int) -> dict:
+    """A MoE arch's decode of token P + 1 against its full forward over
+    P + 1 at capacity_factor = n_experts (nothing drops), on the first
+    LM_MOE_CHECK_BATCH[dtype] sequences, in bf16 and then in float32 (the
+    weights cast in place, TF32 off). Per sequence: the logits' error and
+    the layers where the last token's K experts differ between the two
+    (the router is discontinuous: where the K-th and (K+1)-th
+    probabilities nearly tie, the 1-row and 513-row matmuls' roundings
+    pick different experts). bf16 is held to LM_DECODE_TOL on the
+    sequences routed alike in every layer; float32 on every sequence to
+    LM_WIDTH_TOL."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    P = prompt.shape[1]
+    orig, routes, out = M.route, [], {}
+
+    def route(p, xt, c):
+        r = orig(p, xt, c)
+        routes.append(r[2].sort(-1).values)
+        return r
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M.route = route
+    try:
+        for dtype, nb in LM_MOE_CHECK_BATCH.items():
+            if dtype == "float32":
+                params.float()
+            c = _with_capacity(cfg, float(cfg.moe.n_experts)).scaled(dtype=dtype)
+            model = build_model(c, max_seq=P + 1, chunk=chunk)
+            toks, nxt = prompt[:nb], first[:nb]
+            nb = toks.shape[0]
+            cache = model.init_cache(nb, P + 1, device=DEVICE)
+            model.prefill(params, {"tokens": toks}, cache)
+            routes.clear()
+            logits_d, _ = model.decode_step(params, cache, {"token": nxt, "index": P})
+            dec = list(routes)
+            routes.clear()
+            hid, _, _ = T.forward(params, c, torch.cat([toks, nxt], 1), chunk=chunk)
+            ref = T.lm_head(params, c, hid[:, -1:])
+            full = [r.reshape(nb, P + 1, -1)[:, -1] for r in routes]
+            del cache, hid
+            flips = [[i for i, (a, b) in enumerate(zip(dec, full)) if not torch.equal(a[q], b[q])]
+                     for q in range(nb)]
+            errs = [rel_err(logits_d[q], ref[q]) for q in range(nb)]
+            out[dtype] = {"batch": nb, "err_per_sequence": errs, "flipped_layers": flips}
+            log(f"[lm] {cfg.name} {dtype} decode of token {P + 1} against the full forward "
+                f"(capacity_factor {cfg.moe.n_experts}), per sequence: errors "
+                f"{', '.join(f'{e:.3e}' for e in errs)} of max |ref|; layers whose last-token "
+                f"experts differ {flips}")
+    finally:
+        M.route = orig
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    alike = [e for e, f in zip(out["bfloat16"]["err_per_sequence"],
+                               out["bfloat16"]["flipped_layers"]) if not f]
+    out["bfloat16"].update(bound=LM_DECODE_TOL, held_on=len(alike))
+    require(all(e < LM_DECODE_TOL for e in alike),
+            f"{cfg.name} bf16 decode against the full forward, sequences routed alike: "
+            f"{alike} of max |ref| (bound {LM_DECODE_TOL})")
+    out["float32"]["bound"] = LM_WIDTH_TOL
+    require(all(e < LM_WIDTH_TOL for e in out["float32"]["err_per_sequence"]),
+            f"{cfg.name} float32 decode against the full forward: "
+            f"{out['float32']['err_per_sequence']} of max |ref| (bound {LM_WIDTH_TOL})")
+    return out
+
+
+def lm_full_model(torch, arch: str) -> dict:
+    """``arch`` at full width and depth in bf16 on the card: parameter
     counts, the prefill of LM_BATCH x LM_PROMPT (CUDA events, median of
     LM_PREFILL_ITERS after a warm-up) and LM_GEN greedy decode steps at
     index LM_PROMPT + i (CUDA events around each step: decode_step and the
     argmax), each against its bound from ``utils/roofline.py``; then the
-    decode of token LM_PROMPT + 1 against a full forward over it."""
+    decode of token LM_PROMPT + 1 against a full forward over it (a MoE
+    arch at capacity_factor = n_experts on LM_MOE_CHECK_BATCH sequences)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models import transformer as T
     from repro_torch.utils import roofline as R
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
     model = build_model(cfg, max_seq=P + G, chunk=min(512, P))
     counts = R.lm_param_counts(cfg)
     bpe = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
@@ -2682,31 +2787,37 @@ def lm_full_model(torch) -> dict:
         del prof_cache
 
         # decode against the full forward over the prompt and its first token
-        c1 = model.init_cache(B, P + 1, device=DEVICE)
-        model.prefill(params, {"tokens": prompt}, c1)
-        logits_d, _ = model.decode_step(params, c1, {"token": first, "index": P})
-        hid, _ = T.forward(params, cfg, torch.cat([prompt, first], 1), chunk=model.chunk)
-        ref = T.lm_head(params, cfg, hid[:, -1:])
-        decode_err = rel_err(logits_d, ref)
+        del cache
+        if cfg.moe is None:
+            c1 = model.init_cache(B, P + 1, device=DEVICE)
+            model.prefill(params, {"tokens": prompt}, c1)
+            logits_d, _ = model.decode_step(params, c1, {"token": first, "index": P})
+            hid, _, _ = T.forward(params, cfg, torch.cat([prompt, first], 1), chunk=model.chunk)
+            decode_err = rel_err(logits_d, T.lm_head(params, cfg, hid[:, -1:]))
+            del c1, hid
+            require(decode_err < LM_DECODE_TOL,
+                    f"{arch} bf16 decode of token {P + 1} against the full forward: "
+                    f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL})")
+            check = {"max_abs_err_over_max_ref": decode_err, "bound": LM_DECODE_TOL,
+                     "batch": B}
         peak = torch.cuda.max_memory_allocated()
-        del params, cache, c1, hid
-    require(decode_err < LM_DECODE_TOL,
-            f"{LM_ARCH} bf16 decode of token {P + 1} against the full forward: "
-            f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL})")
+        if cfg.moe is not None:
+            check = moe_decode_check(torch, params, cfg, prompt, first, model.chunk)
+        del params
 
     pre = R.lm_step_roofline(cfg, B, P, P)
     dec = [R.lm_step_roofline(cfg, B, 1, P + i + 1) for i in range(G)]
     med = statistics.median(step_ms)
     out = {
-        "arch": LM_ARCH, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "arch": arch, "dtype": cfg.dtype, "layers": cfg.n_layers,
         "params_real": counts["total"], "params_padded": n_padded,
         "param_bytes_real": counts["total"] * bpe, "param_bytes_padded": n_padded * bpe,
         "init_s": init_s, "kv_cache_bytes": cache_bytes,
         "prefill": {"batch": B, "prompt": P, "ms": prefill_ms,
                     "tokens_per_s": B * P / (prefill_ms / 1e3),
-                    "flops": pre.flops, "bound_ms": pre.t_bound * 1e3,
-                    "bound_by": pre.bound_by,
-                    "mfu": pre.flops / (prefill_ms / 1e3) / R.PEAK_FLOPS_BF16},
+                    "flops": pre.flops, "model_flops": pre.model_flops,
+                    "bound_ms": pre.t_bound * 1e3, "bound_by": pre.bound_by,
+                    "mfu": pre.model_flops / (prefill_ms / 1e3) / R.PEAK_FLOPS_BF16},
         "decode": {"batch": B, "steps": G, "context": [P + 1, P + G],
                    "ms_median": med, "ms_mean": statistics.fmean(step_ms),
                    "ms_min": min(step_ms), "ms_max": max(step_ms),
@@ -2714,16 +2825,21 @@ def lm_full_model(torch) -> dict:
                    "hbm_bound_ms_median": statistics.median(r.t_memory for r in dec) * 1e3,
                    "bound_by": dec[G // 2].bound_by,
                    "hbm_bound_share": sum(r.t_memory for r in dec) * 1e3 / sum(step_ms)},
-        "decode_vs_full": {"max_abs_err_over_max_ref": decode_err, "bound": LM_DECODE_TOL},
+        "decode_vs_full": check,
         "device_profile": {"prefill": profiles["prefill"],
                            f"decode_{LM_PROFILE_STEPS}_steps": profiles["decode"]},
         "peak_bytes": peak, "peak_bytes_above_baseline": peak - base,
     }
-    log(f"[lm] {LM_ARCH} bf16, {cfg.n_layers} layers: {counts['total'] / 1e9:.3f} B params "
+    if cfg.moe is not None:
+        out["params_active"] = counts["active"]
+        out["capacity_factor"] = {"prefill_and_decode": cfg.moe.capacity_factor,
+                                  "decode_vs_full": float(cfg.moe.n_experts)}
+    log(f"[lm] {arch} bf16, {cfg.n_layers} layers: {counts['total'] / 1e9:.3f} B params "
         f"real ({out['param_bytes_real'] / 1e9:.2f} GB), {n_padded / 1e9:.3f} B padded "
         f"({out['param_bytes_padded'] / 1e9:.2f} GB); init on the card {init_s:.2f}s")
     log(f"[lm] prefill {B}x{P}: {prefill_ms:.3f} ms (median of {LM_PREFILL_ITERS}), "
-        f"{out['prefill']['tokens_per_s']:.0f} tok/s, {pre.flops / 1e12:.2f} TFLOP, bound "
+        f"{out['prefill']['tokens_per_s']:.0f} tok/s, {pre.flops / 1e12:.2f} TFLOP "
+        f"({pre.model_flops / 1e12:.2f} of the active parameters), bound "
         f"{pre.t_bound * 1e3:.3f} ms ({pre.bound_by}), MFU {out['prefill']['mfu']:.4f}")
     log(f"[lm] decode B={B}, context {P + 1}..{P + G}: {med:.3f} ms a step (median of "
         f"{G}; mean {out['decode']['ms_mean']:.3f}, min {min(step_ms):.3f}, max "
@@ -2736,38 +2852,111 @@ def lm_full_model(torch) -> dict:
             f"{pr['busy_ms']:.3f} of {pr['wall_ms']:.3f} ms wall, idle share "
             f"{pr['idle_share']:.4f}, {pr['n_events']} device events; top kernels "
             f"[name, launches, ms]: {json.dumps(pr['top_kernels'])}")
-    log(f"[lm] decode of token {P + 1} against the full forward over {P + 1}: "
-        f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL}); peak device memory "
-        f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the phase's "
-        f"baseline); KV cache {cache_bytes / 1e9:.3f} GB")
+    if cfg.moe is None:
+        log(f"[lm] decode of token {P + 1} against the full forward over {P + 1}: "
+            f"{check['max_abs_err_over_max_ref']:.3e} of max |ref| (bound {LM_DECODE_TOL})")
+    log(f"[lm] peak device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
+        f"above the phase's baseline); KV cache {cache_bytes / 1e9:.3f} GB")
+    return out
+
+
+def lm_layer_times(torch) -> dict:
+    """The new families' layers alone in bf16 at the serve shapes, on one
+    layer of random weights (CUDA events, median of LM_PREFILL_ITERS after
+    a warm-up; host launch gaps included): OLMoE's MoE FFN whole and its
+    routing + dispatch plan at the 8 x 512 prefill and an 8-token decode
+    step, RecurrentGemma-9B's RG-LRU scan (gates and the log-depth scan)
+    and recurrent block at 4 x 512, xLSTM-1.3B's mLSTM and sLSTM blocks at
+    4 x 512 (the sLSTM's 512-step time loop) and one sLSTM decode step, and
+    Whisper-base's decoder cross-attention over 512 cached frames at 8
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import whisper as W
+    from repro_torch.models import xlstm as X
+    dt = torch.bfloat16
+    gen = torch.Generator(DEVICE).manual_seed(SEED)
+
+    def x(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dt)
+
+    out = {}
+
+    def timed(name, fn, shape):
+        ms = cuda_ms(fn, iters=LM_PREFILL_ITERS)
+        out[name] = {"shape": list(shape), "ms": ms}
+        log(f"[lm] layer {name} {list(shape)}: {ms:.3f} ms")
+
+    with torch.inference_mode():
+        cfg = get_config("olmoe-1b-7b")
+        p = M.moe_init(gen, cfg, dt, DEVICE)
+        for what, shape in (("prefill", (8, 512, cfg.d_model)), ("decode", (8, 1, cfg.d_model))):
+            h = x(*shape)
+            T = shape[0] * shape[1]
+            timed(f"moe_apply {what}", lambda: M.moe_apply(p, h, cfg), shape)
+            timed(f"moe route+dispatch {what}", lambda: M.dispatch(
+                M.route(p, h.reshape(T, -1), cfg)[2], cfg.moe.n_experts, M.capacity(T, cfg)),
+                shape)
+        del p
+        cfg = get_config("recurrentgemma-9b")
+        p = RG.rglru_init(gen, cfg.d_model, cfg.lru_width, cfg.conv_width, dt, DEVICE)
+        h = x(4, 512, cfg.lru_width)
+        timed("rglru_scan prefill", lambda: RG.rglru_scan(p, h), h.shape)
+        h = x(4, 512, cfg.d_model)
+        timed("rec_block_apply prefill", lambda: RG.rec_block_apply(p, h), h.shape)
+        del p
+        cfg = get_config("xlstm-1.3b")
+        p = X.mlstm_init(gen, cfg.d_model, cfg.n_heads, cfg.conv_width, dt, DEVICE)
+        h = x(4, 512, cfg.d_model)
+        timed("mlstm_block_apply prefill", lambda: X.mlstm_block_apply(p, h, cfg.n_heads), h.shape)
+        p = X.slstm_init(gen, cfg.d_model, cfg.n_heads, dt, DEVICE)
+        timed("slstm_block_apply prefill (512-step loop)",
+              lambda: X.slstm_block_apply(p, h, cfg.n_heads), h.shape)
+        st = {k: torch.zeros((4, cfg.d_model), device=DEVICE) for k in X.SLSTM_STATE}
+        h1 = x(4, 1, cfg.d_model)
+        timed("slstm_block_apply decode", lambda: X.slstm_block_apply(
+            p, h1, cfg.n_heads, cache=st, decode=True), h1.shape)
+        del p
+        cfg = get_config("whisper-base")
+        p = W._dec_block_init(gen, cfg, dt, DEVICE)["cross_attn"]
+        ck, cv = W.cross_kv(p, x(8, 512, cfg.d_model))
+        h = x(8, 1, cfg.d_model)
+        timed("whisper cross-attention decode (512 frames)",
+              lambda: W._cross_attn(p, h, ck, cv, 512), h.shape)
     return out
 
 
 def phase_lm(torch, env) -> dict:
     """Phase 19: the width checks in float32 (TF32 off), ``python -m
-    repro_torch.launch.serve`` at LM_SERVE_ARGS as a subprocess (exits 0,
-    prints its ``[serve]`` line), then the full model in process. Returns
-    the ``lm`` JSON line's object."""
+    repro_torch.launch.serve`` for each arch of LM_SERVE_RUNS as a
+    subprocess, one after another (each exits 0 and prints its ``[serve]``
+    line), the full models of LM_FULL_ARCHS in process, then the new
+    families' layers alone. Returns the ``lm`` JSON line's object, keyed by
+    arch."""
     t_phase = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        width = {name: lm_width_check(torch, name) for name in LM_WIDTH_ARCHS}
+        width = {name: lm_width_check(torch, name) for name in LM_WIDTH_LAYERS}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    o, _, t = oms_cli(LM_SERVE_ARGS, "lm serve", module="serve")
-    lines = [x for x in o.splitlines() if x.startswith("[serve] generated ")]
-    require(len(lines) == 1 and f"generated {LM_BATCH * LM_GEN} tokens" in lines[0],
-            f"`serve {' '.join(map(str, LM_SERVE_ARGS))}` printed no [serve] line:\n{o}")
-    log(f"[lm] `serve {' '.join(map(str, LM_SERVE_ARGS))}` exited 0 (process {t:.1f}s): "
-        f"{lines[0]}")
-    full = lm_full_model(torch)
+    serve = {}
+    for arch, (b, plen, gen) in LM_SERVE_RUNS.items():
+        args = ["--arch", arch, "--batch", b, "--prompt-len", plen, "--gen", gen]
+        o, _, t = oms_cli(args, f"lm serve {arch}", module="serve")
+        lines = [x for x in o.splitlines() if x.startswith("[serve] generated ")]
+        require(len(lines) == 1 and f"generated {b * gen} tokens" in lines[0],
+                f"`serve {' '.join(map(str, args))}` printed no [serve] line:\n{o}")
+        log(f"[lm] `serve {' '.join(map(str, args))}` exited 0 (process {t:.1f}s): "
+            f"{lines[0]}")
+        serve[arch] = {"args": " ".join(map(str, args)), "line": lines[0], "process_s": t}
+    full = {arch: lm_full_model(torch, arch) for arch in LM_FULL_ARCHS}
+    layers = lm_layer_times(torch)
     dt = time.perf_counter() - t_phase
     log(f"[lm] phase 19 in {dt:.1f}s")
-    return {"card": env["smi"], "width_check_float32": width,
-            "serve_cli": {"args": " ".join(map(str, LM_SERVE_ARGS)), "line": lines[0],
-                          "process_s": t},
-            **full, "phase_s": dt}
+    return {"card": env["smi"], "width_check_float32": width, "serve_cli": serve,
+            "full_model": full, "layers_bf16": layers, "phase_s": dt}
 
 
 def main() -> int:

@@ -19,6 +19,8 @@ from repro_torch.core.encoding import Codebooks
 from repro_torch.core.fdr import FDRResult
 from repro_torch.core.search import SearchResult
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
+from repro_torch.models.layers import ParamTree
 
 
 def packed_to_torch(words, device="cpu") -> torch.Tensor:
@@ -109,27 +111,72 @@ def _map_tree(fn, tree):
             for k, v in tree.items()}
 
 
-def lm_params_from_reference(tree, cfg, device="cpu"):
-    """The reference's LM params (stacked per block type: leaf ``[j]`` is
-    the ``j``-th layer of that type) -> the port's ``LMParams``, one block
-    per layer in ``block_layout`` order."""
-    def module(d):
-        if all(isinstance(v, torch.Tensor) for v in d.values()):
-            return nn.ParameterDict(d)
-        return nn.ModuleDict({k: module(v) for k, v in d.items()})
+def _module(d):
+    """A nested dict of tensors as the port's parameter containers."""
+    if all(isinstance(v, torch.Tensor) for v in d.values()):
+        return nn.ParameterDict(d)
+    if all(isinstance(v, dict) for v in d.values()):
+        return nn.ModuleDict({k: _module(v) for k, v in d.items()})
+    return ParamTree({k: _module(v) if isinstance(v, dict) else v for k, v in d.items()})
 
-    seen: dict[str, int] = {}
-    blocks = []
-    for btype in T.block_layout(cfg):
-        j = seen.get(btype, 0)
-        seen[btype] = j + 1
-        blocks.append(module(_map_tree(lambda a: _leaf_to_torch(np.asarray(a)[j], device),
-                                       tree[btype])))
+
+def _unstack(tree, n: int, device) -> list:
+    """A reference stack (leaf ``[j]`` is layer ``j``) as ``n`` modules."""
+    return [_module(_map_tree(lambda a: _leaf_to_torch(np.asarray(a)[j], device), tree))
+            for j in range(n)]
+
+
+def lm_params_from_reference(tree, cfg, device="cpu"):
+    """The reference's LM params -> the port's: ``LMParams`` with one block
+    per layer in ``block_layout`` order (the reference stacks them per
+    block type: leaf ``[j]`` is the ``j``-th layer of that type), or, for
+    the audio family, ``WhisperParams`` with its encoder and decoder stacks
+    unstacked. Every leaf keeps its dtype."""
+    def leaf(a):
+        return _leaf_to_torch(a, device)
+
+    if cfg.family == "audio":
+        return W.WhisperParams(
+            leaf(tree["embed"]), leaf(tree["pos_dec"]),
+            _unstack(tree["enc_blocks"], cfg.encdec.n_encoder_layers, device),
+            _unstack(tree["dec_blocks"], cfg.n_layers, device),
+            _module(_map_tree(leaf, tree["enc_norm"])),
+            _module(_map_tree(leaf, tree["dec_norm"])))
+    stacks = {t: iter(_unstack(tree[t], n, device)) for t, n in T.type_counts(cfg).items()}
+    blocks = [next(stacks[t]) for t in T.block_layout(cfg)]
     unembed = tree.get("unembed")
-    return T.LMParams(
-        _leaf_to_torch(tree["embed"], device),
-        module(_map_tree(lambda a: _leaf_to_torch(a, device), tree["final_norm"])),
-        blocks, None if unembed is None else _leaf_to_torch(unembed, device))
+    return T.LMParams(leaf(tree["embed"]), _module(_map_tree(leaf, tree["final_norm"])),
+                      blocks, None if unembed is None else leaf(unembed))
+
+
+def lm_params_to_reference(params, cfg) -> dict:
+    """The port's LM params in the reference's layout: nested dicts of
+    tensors, the layers stacked per block type (``enc_blocks`` /
+    ``dec_blocks`` for audio). Works on ``meta`` parameters too."""
+    def tree(m):
+        return {k: tree(v) if isinstance(v, nn.Module) else v.detach()
+                for k, v in m.items()}
+
+    def stack(blocks):
+        trees = [tree(b) for b in blocks]
+
+        def join(ts):
+            return {k: join([t[k] for t in ts]) if isinstance(ts[0][k], dict)
+                    else torch.stack([t[k] for t in ts]) for k in ts[0]}
+        return join(trees)
+
+    if cfg.family == "audio":
+        return {"embed": params.embed.detach(), "pos_dec": params.pos_dec.detach(),
+                "enc_blocks": stack(params.enc_blocks),
+                "dec_blocks": stack(params.dec_blocks),
+                "enc_norm": tree(params.enc_norm), "dec_norm": tree(params.dec_norm)}
+    out = {"embed": params.embed.detach(), "final_norm": tree(params.final_norm)}
+    if params.unembed is not None:
+        out["unembed"] = params.unembed.detach()
+    layout = T.block_layout(cfg)
+    for t in T.type_counts(cfg):
+        out[t] = stack([b for b, bt in zip(params.blocks, layout) if bt == t])
+    return out
 
 
 def lm_cache_from_reference(tree, device="cpu") -> dict:

@@ -7,6 +7,10 @@ runs the same code on the host).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         [--smoke] [--batch 4] [--prompt-len 64] [--gen 32] [--device cpu]
 
+Every registered arch serves. For the audio family (whisper-base) the
+encoder takes ``--prompt-len`` zero frame embeddings, as the reference's
+CLI does.
+
 Weights are random, drawn on the target device from seed 0 (the prompt
 from seed 1): a truncated-normal init of billions of parameters on the
 host would take minutes.
@@ -24,19 +28,24 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models.model import build_model
 
 
-def generate(model, params, prompt, *, gen: int):
+def generate(model, params, prompt, *, gen: int, enc_seq=None):
     """Greedy generation loop with a persistent KV cache: the first token
     from the prefill's logits, then ``gen - 1`` decode steps at index
-    ``P + i``. Returns (B, gen) int32 token ids."""
+    ``P + i``. The audio family encodes ``enc_seq`` zero frame embeddings
+    first. Returns (B, gen) int32 token ids."""
     B, P = prompt.shape
     dev = prompt.device
-    cache = model.init_cache(B, P + gen, device=dev)
+    dtype = getattr(torch, model.cfg.dtype)
+    audio = model.cfg.family == "audio"
+    cache = model.init_cache(B, P + gen, enc_seq if audio else None, device=dev)
     batch = {"tokens": prompt}
+    if audio:
+        batch["frame_embeds"] = torch.zeros((B, enc_seq, model.cfg.d_model),
+                                            dtype=dtype, device=dev)
     if model.cfg.family == "vlm":
         nv = min(4, P)
         batch["vision_embeds"] = torch.zeros((B, nv, model.cfg.d_model),
-                                             dtype=getattr(torch, model.cfg.dtype),
-                                             device=dev)
+                                             dtype=dtype, device=dev)
         batch["positions3"] = torch.arange(P, dtype=torch.int32, device=dev
                                            )[None, None, :].expand(3, B, P)
 
@@ -77,7 +86,8 @@ def main(argv=None):
                                generator=torch.Generator(device).manual_seed(1),
                                device=device)
         t0 = time.perf_counter()
-        tokens = generate(model, params, prompt, gen=args.gen).cpu()
+        tokens = generate(model, params, prompt, gen=args.gen,
+                          enc_seq=args.prompt_len).cpu()
         dt = time.perf_counter() - t0
     n = args.batch * args.gen
     print(f"[serve] generated {n} tokens in {dt:.2f}s "

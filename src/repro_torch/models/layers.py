@@ -40,6 +40,40 @@ def _truncated_normal(generator, shape, device) -> torch.Tensor:
     return t
 
 
+def uniform_init(generator, shape, lo: float, hi: float, device) -> torch.Tensor:
+    """float32 uniform on [lo, hi) from ``generator`` on ``device``."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.device.type != "meta":
+        t.uniform_(lo, hi, generator=generator)
+    return t
+
+
+class ParamTree(nn.Module):
+    """A dict of tensors and sub-trees that reads like the reference's
+    params dict (``p["w_up"]``, ``"shared" in p``) and registers its
+    tensors as parameters and its sub-trees as modules: for params that
+    mix both (a MoE FFN with shared experts), which neither
+    ``nn.ParameterDict`` nor ``nn.ModuleDict`` holds."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        self._names = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, nn.Module):
+                self.add_module(k, v)
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def __getitem__(self, k):
+        return getattr(self, k)
+
+    def __contains__(self, k) -> bool:
+        return k in self._names
+
+    def items(self):
+        return [(k, self[k]) for k in self._names]
+
+
 def dense_init(generator, shape, dtype, device, scale: float | None = None):
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(fan_in)

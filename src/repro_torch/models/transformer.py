@@ -1,17 +1,16 @@
-"""Decoder-only assembly for the dense, MLA and VLM families.
+"""Decoder-only assembly for the dense, MoE, MLA, hybrid, SSM and VLM
+families.
 
 Counterpart of ``repro.models.transformer``. The reference stores layers
 stacked per block type and runs them with ``jax.lax.scan`` (superblocks for
 repeating patterns, a tail scan for the remainder); here the weights are
-one ``nn.ModuleDict`` per layer and the forward is one Python loop over
+one module per layer and the forward is one Python loop over
 ``block_layout(cfg)``, which serves every pattern alike.
 
 Caches keep the reference's per-type stacked layout: cache["attn_block"]["k"]
-has shape (n_attn_block_layers, B, S_max, KV, hd), etc. A layer reads and
-writes its own slice of the stack in place.
-
-The recurrent blocks (``rec``, ``mlstm``, ``slstm``) and MoE FFNs are
-ROADMAP queue 1 item 9 (b): they raise ``NotImplementedError``.
+has shape (n_attn_block_layers, B, S_max, KV, hd), cache["rec"]["h"]
+(n_rec_layers, B, W), etc. A layer reads and writes its own slice of the
+stack in place.
 """
 from __future__ import annotations
 
@@ -20,9 +19,9 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-
-SLICE_B = "ROADMAP queue 1 item 9 (b)"
-PF_MLSTM = 2          # mLSTM up-projection factor (the reference's xlstm.py)
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 
 # ---------------------------------------------------------------------------
 # layout helpers
@@ -43,10 +42,6 @@ def type_counts(cfg: ArchConfig) -> dict[str, int]:
     return {t: lay.count(t) for t in dict.fromkeys(lay)}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({SLICE_B})")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -63,21 +58,29 @@ def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
 
 def init_block(generator, cfg: ArchConfig, btype: str, dtype, device) -> nn.ModuleDict:
     D = cfg.d_model
-    if cfg.moe is not None:
-        raise _not_ported(f"MoE FFN ({cfg.name})")
     p = nn.ModuleDict({"ln1": L.norm_init(D, cfg.norm, dtype, device)})
     if btype in ("attn_block", "attn"):   # "attn": hybrid local-attention block
         p["attn"] = L.attn_init(generator, _attn_dims(cfg), dtype, device)
     elif btype == "mla_block":
         p["attn"] = L.mla_init(generator, cfg, dtype, device)
-    elif btype in ("rec", "mlstm", "slstm"):
-        raise _not_ported(f"block type {btype!r} ({cfg.name})")
+    elif btype == "rec":
+        p["rec"] = rg.rglru_init(generator, D, cfg.lru_width or D, cfg.conv_width,
+                                 dtype, device)
+    elif btype == "mlstm":
+        p["cell"] = xl.mlstm_init(generator, D, cfg.n_heads, cfg.conv_width, dtype, device)
+        return p
+    elif btype == "slstm":
+        p["cell"] = xl.slstm_init(generator, D, cfg.n_heads, dtype, device)
+        return p
     else:
         raise ValueError(btype)
 
     if cfg.ffn != "none":
         p["ln2"] = L.norm_init(D, cfg.norm, dtype, device)
-        p["ffn"] = L.ffn_init(generator, D, cfg.d_ff, cfg.ffn, dtype, device)
+        if cfg.moe is not None:
+            p["ffn"] = moe_mod.moe_init(generator, cfg, dtype, device)
+        else:
+            p["ffn"] = L.ffn_init(generator, D, cfg.d_ff, cfg.ffn, dtype, device)
     return p
 
 
@@ -138,7 +141,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None):
             cache[btype] = {"h": zeros((n, batch, w), torch.float32),
                             "conv": zeros((n, batch, cfg.conv_width - 1, w))}
         elif btype == "mlstm":
-            d_in = PF_MLSTM * cfg.d_model
+            d_in = xl.PF_MLSTM * cfg.d_model
             dh = d_in // cfg.n_heads
             cache[btype] = {
                 "C": zeros((n, batch, cfg.n_heads, dh, dh), torch.float32),
@@ -162,9 +165,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, device, dtype=None):
 
 def apply_block(p, x, btype, cfg: ArchConfig, cos_sin, *, cache=None,
                 cache_index=None, chunk=1024):
-    """One residual block. Returns (x, cache_slice)."""
-    if cfg.moe is not None:
-        raise _not_ported(f"MoE FFN ({cfg.name})")
+    """One residual block. Returns (x, new_cache_slice, aux_loss): the
+    attention blocks write their cache slice in place and return it; the
+    recurrent ones return their new state as fresh tensors. ``aux_loss``
+    is the MoE load-balance loss, None without MoE. A decode step is a
+    call with both a cache and a ``cache_index``."""
+    aux = None
+    decode = cache is not None and cache_index is not None
     h = L.norm_apply(p["ln1"], x, cfg.norm, cfg.norm_eps)
 
     if btype in ("attn_block", "attn"):
@@ -177,16 +184,28 @@ def apply_block(p, x, btype, cfg: ArchConfig, cos_sin, *, cache=None,
     elif btype == "mla_block":
         o, new_c = L.mla_apply(p["attn"], h, cos_sin, cfg=cfg, cache=cache,
                                cache_index=cache_index, chunk=chunk)
-    elif btype in ("rec", "mlstm", "slstm"):
-        raise _not_ported(f"block type {btype!r} ({cfg.name})")
+    elif btype == "rec":
+        o, new_c = rg.rec_block_apply(p["rec"], h, cache=cache, decode=decode)
+    elif btype == "mlstm":
+        o, new_c = xl.mlstm_block_apply(p["cell"], h, cfg.n_heads, cache=cache,
+                                        decode=decode, chunk=min(chunk, 256))
+        return x + o, new_c, aux
+    elif btype == "slstm":
+        o, new_c = xl.slstm_block_apply(p["cell"], h, cfg.n_heads, cache=cache,
+                                        decode=decode)
+        return x + o, new_c, aux
     else:
         raise ValueError(btype)
 
     x = x + o
     if cfg.ffn != "none":
         h2 = L.norm_apply(p["ln2"], x, cfg.norm, cfg.norm_eps)
-        x = x + L.ffn_apply(p["ffn"], h2, cfg.ffn)
-    return x, new_c
+        if cfg.moe is not None:
+            f, aux = moe_mod.moe_apply(p["ffn"], h2, cfg)
+        else:
+            f = L.ffn_apply(p["ffn"], h2, cfg.ffn)
+        x = x + f
+    return x, new_c, aux
 
 
 # ---------------------------------------------------------------------------
@@ -197,11 +216,12 @@ def apply_block(p, x, btype, cfg: ArchConfig, cos_sin, *, cache=None,
 def forward(params: LMParams, cfg: ArchConfig, tokens, *, positions=None,
             positions3=None, vision_embeds=None, cache=None,
             cache_index=None, chunk=1024):
-    """Returns (hidden (B,S,D), cache). Logits via lm_head().
+    """Returns (hidden (B,S,D), cache, aux_loss float32). Logits via lm_head().
 
     With a cache and no ``cache_index`` the tokens are prefilled into it
     from position 0; with ``cache_index`` (an int) they are decoded at that
-    position. The cache is written in place and returned.
+    position. The cache is written in place and returned. ``aux_loss`` is
+    the MoE load-balance loss summed over layers (0 without MoE).
     """
     B, S = tokens.shape
     x = params.embed[tokens.long()]
@@ -216,16 +236,24 @@ def forward(params: LMParams, cfg: ArchConfig, tokens, *, positions=None,
     if cfg.rope_theta > 0:
         cos_sin = L.rope_cos_sin(cfg, positions, positions3=positions3)
 
+    aux_total = None
     seen: dict[str, int] = {}
     for p, btype in zip(params.blocks, block_layout(cfg)):
         j = seen.get(btype, 0)
         seen[btype] = j + 1
         c = None if cache is None else {n: t[j] for n, t in cache[btype].items()}
-        x, _ = apply_block(p, x, btype, cfg, cos_sin, cache=c,
-                           cache_index=cache_index, chunk=chunk)
+        x, new_c, aux = apply_block(p, x, btype, cfg, cos_sin, cache=c,
+                                    cache_index=cache_index, chunk=chunk)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+        if c is not None and new_c is not c:
+            for n, t in new_c.items():
+                c[n].copy_(t)
 
     x = L.norm_apply(params.final_norm, x, cfg.norm, cfg.norm_eps)
-    return x, cache
+    if aux_total is None:
+        aux_total = x.new_zeros((), dtype=torch.float32)
+    return x, cache, aux_total
 
 
 def lm_head(params: LMParams, cfg: ArchConfig, hidden):

@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 PEAK_FLOPS_BF16 = 989e12
@@ -202,54 +204,159 @@ def hdencode_roofline(n_spectra: int, n_peaks: int, n_words: int,
 _DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 
-def lm_param_counts(cfg) -> dict[str, int]:
-    """Parameters of the published dense decoder (real heads: no TP
-    padding): ``embed``, ``unembed`` (0 when tied), ``layer`` (one block's
-    weights, norms and biases included), ``final_norm`` and ``total``."""
-    if cfg.mla is not None or cfg.moe is not None or cfg.block_pattern:
-        raise NotImplementedError(f"{cfg.name}: only dense attention blocks are counted")
-    D, F = cfg.d_model, cfg.d_ff
-    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    norm = D * (2 if cfg.norm == "layernorm" else 1)
-    ffn = 3 * D * F if cfg.ffn == "swiglu" else 2 * D * F + F + D
-    layer = 2 * D * H * hd + 2 * D * KV * hd + ffn + 2 * norm
-    c = {"embed": cfg.vocab_size * D,
-         "unembed": 0 if cfg.tie_embeddings else D * cfg.vocab_size,
-         "layer": layer, "final_norm": norm}
-    c["total"] = c["embed"] + c["unembed"] + cfg.n_layers * layer + norm
+def _norm_params(cfg, kind: str | None = None) -> int:
+    return cfg.d_model * (2 if (kind or cfg.norm) == "layernorm" else 1)
+
+
+def _attn_params(cfg, *, bias: bool = False) -> int:
+    D, hd, H, KV = cfg.d_model, cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    return 2 * D * H * hd + 2 * D * KV * hd + (H * hd + 2 * KV * hd + D if bias else 0)
+
+
+def _ffn_params(d: int, f: int, kind: str) -> int:
+    return 3 * d * f if kind == "swiglu" else 2 * d * f + f + d
+
+
+def _expert_params(cfg) -> int:
+    """One routed expert's weights (w_gate, w_up, w_down)."""
+    return 3 * cfg.d_model * cfg.moe.d_ff_expert
+
+
+def _block_params(cfg, btype: str) -> int:
+    """One decoder block of type ``btype`` (norms, biases and gates in)."""
+    D, nh, Kc = cfg.d_model, cfg.n_heads, cfg.conv_width
+    if btype in ("attn_block", "attn"):
+        mix = _attn_params(cfg)
+    elif btype == "mla_block":
+        m, H = cfg.mla, cfg.n_heads
+        mix = (D * H * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+               + D * (m.kv_lora_rank + m.qk_rope_head_dim)
+               + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+               + H * m.v_head_dim * D)
+    elif btype == "rec":
+        W = cfg.lru_width or D
+        mix = 3 * D * W + Kc * W + W + 2 * W * W + 3 * W
+    elif btype == "mlstm":              # up-projection factor 2, no FFN
+        d_in = 2 * D
+        return (_norm_params(cfg) + 2 * D * d_in + Kc * d_in + d_in
+                + 3 * d_in * d_in + 2 * d_in * nh + 2 * nh + d_in + d_in * D)
+    elif btype == "slstm":              # its own 4/3 gated FFN, no ln2
+        dh, d_ff = D // nh, int(4.0 / 3.0 * D) // 64 * 64 or D
+        return (_norm_params(cfg) + 4 * D * D + 4 * D + 4 * nh * dh * dh + D
+                + 3 * D * d_ff)
+    else:
+        raise ValueError(btype)
+    if cfg.ffn == "none":
+        return _norm_params(cfg) + mix
+    if cfg.moe is not None:
+        m = cfg.moe
+        ffn = (D * m.n_experts + m.n_experts * _expert_params(cfg)
+               + (3 * D * m.d_ff_expert * m.n_shared if m.n_shared else 0))
+    else:
+        ffn = _ffn_params(D, cfg.d_ff, cfg.ffn)
+    return 2 * _norm_params(cfg) + mix + ffn
+
+
+def _block_types(cfg) -> list[str]:
+    if not cfg.block_pattern:
+        return ["mla_block" if cfg.mla else "attn_block"] * cfg.n_layers
+    pat = list(cfg.block_pattern)
+    return [pat[i % len(pat)] for i in range(cfg.n_layers)]
+
+
+def lm_param_counts(cfg, *, max_dec_seq: int = 4096) -> dict:
+    """Parameters of the published model (real heads: no TP padding), as
+    the reference's ``param_specs`` makes them.
+
+    Decoders: ``embed``, ``unembed`` (0 when tied), ``final_norm``,
+    ``layers`` (one block's parameters per block type: norms, biases, the
+    float32 gates and a MoE layer's router and all its experts included),
+    ``layer`` (the same, for an arch with one block type), ``total``. MoE
+    archs add ``expert`` (one routed expert's weights, 3 * D * F_expert)
+    and ``active``: the parameters one token runs through, ``total`` less
+    the (E - K) routed experts it skips in every layer (shared experts,
+    router and embeddings counted).
+
+    Audio (Whisper): ``embed`` (tied), ``pos_dec`` (``max_dec_seq`` rows,
+    ``Model.max_seq``), ``enc_layer``, ``dec_layer`` (self- and
+    cross-attention with biases, three LayerNorms, the GELU MLP),
+    ``final_norm`` (each of the two), ``total``."""
+    D, V = cfg.d_model, cfg.vocab_size
+    if cfg.family == "audio":
+        ln = _norm_params(cfg, "layernorm")
+        mlp = _ffn_params(D, cfg.d_ff, "mlp_gelu")
+        c = {"embed": V * D, "pos_dec": max_dec_seq * D,
+             "enc_layer": 2 * ln + _attn_params(cfg, bias=True) + mlp,
+             "dec_layer": 3 * ln + 2 * _attn_params(cfg, bias=True) + mlp,
+             "final_norm": ln}
+        c["total"] = (c["embed"] + c["pos_dec"] + cfg.encdec.n_encoder_layers * c["enc_layer"]
+                      + cfg.n_layers * c["dec_layer"] + 2 * ln)
+        return c
+    types = _block_types(cfg)
+    layers = {t: _block_params(cfg, t) for t in dict.fromkeys(types)}
+    c = {"embed": V * D, "unembed": 0 if cfg.tie_embeddings else D * V,
+         "final_norm": _norm_params(cfg), "layers": layers}
+    if len(layers) == 1:
+        c["layer"] = next(iter(layers.values()))
+    c["total"] = (c["embed"] + c["unembed"] + sum(layers[t] for t in types)
+                  + c["final_norm"])
+    if cfg.moe is not None:
+        c["expert"] = _expert_params(cfg)
+        c["active"] = c["total"] - cfg.n_layers * (cfg.moe.n_experts - cfg.moe.top_k) * c["expert"]
     return c
 
 
 def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline:
-    """One step of the published dense decoder (real heads) on ``batch``
-    sequences: ``new_tokens`` positions each, the last at position
-    ``context - 1`` (a prefill of S: new_tokens = context = S; a decode
-    step at context L: new_tokens = 1), the lm_head on the last position
-    only, as ``Model.prefill`` and ``decode_step`` apply it.
+    """One step of the published decoder (real heads) of dense attention
+    blocks, with dense or MoE FFNs, on ``batch`` sequences: ``new_tokens``
+    positions each, the last at position ``context - 1`` (a prefill of S:
+    new_tokens = context = S; a decode step at context L: new_tokens = 1),
+    the lm_head on the last position only, as ``Model.prefill`` and
+    ``decode_step`` apply it.
 
     Operations (bf16 tensor cores): 2 per weight per token through the
-    blocks' matmuls, 4 * hd per (query, key) pair per head for QK^T and PV
-    under the causal mask, 2 * D * V per logit row. Bytes: each weight read
-    once (a tied embedding once, for the lm_head; untied, only the prompt's
-    rows of it), the cached K/V of the earlier positions read, the new K/V
-    written, the tokens read and the logits written."""
+    blocks' attention projections, dense FFN, shared experts and router;
+    4 * hd per (query, key) pair per head for QK^T and PV under the causal
+    mask; 2 * D * V per logit row. A MoE layer's routed experts run as
+    formulated: over all E capacity buffers of C = ceil(T K / E * cf)
+    slots each, whatever the routing, so 2 * E * C * 3 * D * F_expert a
+    layer (at 8 x 512 with olmoe's E 64, K 8, cf 1.25: C = 640, 1.25x the
+    T * K routed copies; at decode B = 8: C = 2). ``model_flops`` counts
+    the routed copies instead, 2 * T * K * 3 * D * F_expert a layer: the
+    work of the active parameters, which an MFU divides by. Bytes: each weight read
+    once, every expert's included (the expert products read all E weight
+    stacks; a MoE router is float32), a tied embedding once, for the
+    lm_head (untied, only the prompt's rows of it), the cached K/V of the earlier positions read,
+    the new K/V written, the tokens read and the logits written."""
+    if cfg.family == "audio" or cfg.mla is not None or cfg.block_pattern:
+        raise ValueError(f"{cfg.name}: lm_step_roofline counts decoders of "
+                         "attention blocks only")
     c = lm_param_counts(cfg)
     bpe = _DTYPE_BYTES[cfg.dtype]
     D, V, hd = cfg.d_model, cfg.vocab_size, cfg.resolved_head_dim
     L, H, KV = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     tokens = batch * new_tokens
     pairs = batch * (new_tokens * context - new_tokens * (new_tokens - 1) // 2)
-    norms = 2 * D * (2 if cfg.norm == "layernorm" else 1)
+    norms = 2 * _norm_params(cfg)
     bias = cfg.d_ff + D if cfg.ffn == "mlp_gelu" else 0
     matmul_weights = c["layer"] - norms - bias
-    flops = (2.0 * tokens * L * matmul_weights + 4.0 * L * H * hd * pairs
-             + 2.0 * D * V * batch)
+    expert_flops = routed_flops = 0.0
+    if cfg.moe is not None:
+        m = cfg.moe
+        slots = m.n_experts * max(int(np.ceil(tokens * m.top_k / m.n_experts
+                                              * m.capacity_factor)), 1)
+        matmul_weights -= m.n_experts * c["expert"]
+        expert_flops = 2.0 * L * slots * c["expert"]
+        routed_flops = 2.0 * L * tokens * m.top_k * c["expert"]
+    rest = 2.0 * tokens * L * matmul_weights + 4.0 * L * H * hd * pairs + 2.0 * D * V * batch
+    flops = rest + expert_flops
     head = V * D
     gathered = 0 if cfg.tie_embeddings else min(tokens, V) * D
     kv_row = L * 2 * KV * hd
+    router_f32 = L * D * cfg.moe.n_experts * (4 - bpe) if cfg.moe is not None else 0
     nbytes = bpe * (L * c["layer"] + c["final_norm"] + head + gathered
                     + batch * (context - new_tokens) * kv_row + tokens * kv_row
-                    + batch * V) + 4 * tokens
+                    + batch * V) + router_f32 + 4 * tokens
     return Roofline(flops=flops, hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
-                    model_flops=flops, ops_per_s=PEAK_FLOPS_BF16,
-                    route="bf16 tensor cores")
+                    model_flops=rest + routed_flops,
+                    ops_per_s=PEAK_FLOPS_BF16, route="bf16 tensor cores")

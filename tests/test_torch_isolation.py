@@ -98,18 +98,25 @@ def test_distributed_modules_are_covered():
 
 def test_lm_modules_are_covered():
     """The static scan and the jax-free import reach the LM serve path: the
-    configs (all ten archs), the layers, the transformer, the Model and
-    ``launch/serve.py``."""
+    configs (all ten archs), the layers, the MoE FFN, the RG-LRU and xLSTM
+    blocks, Whisper, the transformer, the Model and ``launch/serve.py``;
+    every reference module under ``models/`` has its counterpart."""
     files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    models = {"models/__init__.py", "models/layers.py", "models/moe.py",
+              "models/rglru.py", "models/xlstm.py", "models/whisper.py",
+              "models/transformer.py", "models/model.py"}
     assert {"configs/__init__.py", "configs/base.py", "configs/registry.py",
             "configs/shapes.py", "configs/llama3_2_3b.py", "configs/qwen2_vl_7b.py",
-            "models/__init__.py", "models/layers.py", "models/transformer.py",
-            "models/model.py", "launch/serve.py"} <= files
+            "launch/serve.py"} | models <= files
     assert len([f for f in files if f.startswith("configs/")]) == 14
+    ref_models = {f"models/{p.name}" for p in (ROOT / "src" / "repro" / "models").glob("*.py")}
+    assert ref_models == models
     mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                   prefix="repro_torch.")}
     assert {"repro_torch.configs", "repro_torch.configs.registry",
-            "repro_torch.models.layers", "repro_torch.models.transformer",
+            "repro_torch.models.layers", "repro_torch.models.moe",
+            "repro_torch.models.rglru", "repro_torch.models.xlstm",
+            "repro_torch.models.whisper", "repro_torch.models.transformer",
             "repro_torch.models.model", "repro_torch.launch.serve"} <= mods
 
 

@@ -5,8 +5,11 @@ within max |Δ| / max |ref| < 1e-4 (``_torch_lm.TOL``).
 Covered: the config registry, ``reduced_for_smoke`` and the shapes table;
 norms, RoPE, M-RoPE, ``attn_apply`` in every mode, ``mla_apply``, both
 FFNs, the init and the cache writes' clamp; every cache type's layout and
-the bf16 carry; ``param_specs`` at full size; the families of ROADMAP
-item 9 (b) raise. ``test_torch_model_forward.py`` holds the models."""
+the bf16 carry; ``param_specs`` at full size for all ten archs; the
+parameter counts and step bounds of ``utils/roofline.py``.
+``test_torch_model_forward.py``, ``test_torch_moe.py``,
+``test_torch_recurrent.py``, ``test_torch_xlstm.py`` and
+``test_torch_whisper.py`` hold the models."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -25,7 +28,8 @@ from repro.models import layers as RL  # noqa: E402
 from repro.models import transformer as RT  # noqa: E402
 from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.configs.base import reduced_for_smoke  # noqa: E402
-from repro_torch.convert import lm_cache_from_reference, lm_cache_to_numpy  # noqa: E402
+from repro_torch.convert import (lm_cache_from_reference, lm_cache_to_numpy,  # noqa: E402
+                                lm_params_from_reference, lm_params_to_reference)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as PL  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
@@ -322,42 +326,105 @@ def test_param_specs_match_reference_at_full_size(name):
 
 @pytest.mark.parametrize("name", SLICE_B)
 def test_slice_b_families_raise(name):
+    """The MoE, recurrent, xLSTM and audio archs build at full size: the
+    port's ``param_specs()`` on ``meta``, in the reference's layout
+    (``lm_params_to_reference``), equals the reference's ``param_specs()``
+    (``jax.eval_shape``) leaf for leaf in path, shape and dtype; a small
+    init on the CPU and its caches build too."""
+    ref_specs = ref_build_model(ref_get_config(name)).param_specs()
+    m = build_model(get_config(name))
+    port = m.param_specs()
+    assert all(p.device.type == "meta" for p in port.parameters())
+    ref_leaves = {jax.tree_util.keystr(k): (v.shape, str(v.dtype))
+                  for k, v in jax.tree_util.tree_leaves_with_path(ref_specs)}
+    port_leaves = {jax.tree_util.keystr(k): (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+                   for k, v in jax.tree_util.tree_leaves_with_path(
+                       lm_params_to_reference(port, get_config(name)))}
+    assert port_leaves == ref_leaves
     _, cfg = smoke_cfgs(name)
-    m = build_model(cfg)
-    with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
-        m.init_params(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
-        m.param_specs()
-    if cfg.family == "audio":
-        with pytest.raises(NotImplementedError, match=r"item 9 \(b\)"):
-            m.init_cache(B, 8, device="cpu")
+    small = build_model(cfg, max_seq=8)
+    params = small.init_params(torch.Generator().manual_seed(0), "cpu")
+    assert all(torch.isfinite(p).all() for p in params.parameters())
+    cache = small.init_cache(B, 8, enc_seq=4, device="cpu")
+    assert all(t.device.type == "cpu" for d in cache.values()
+               for t in (d.values() if isinstance(d, dict) else [d]))
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SLICE_B)
+def test_bf16_params_carry_across_with_their_dtypes(name):
+    """The reference's bf16 init (smoke widths) through
+    ``lm_params_from_reference`` and back through ``lm_params_to_reference``
+    returns every leaf bit for bit in its own dtype: the float32 router,
+    RG-LRU gate biases and Λ, mLSTM gates and sLSTM cell inside a bf16
+    model stay float32."""
+    ref_cfg = ref_reduced(ref_get_config(name))
+    tree = jax.tree_util.tree_map(np.asarray, jax.jit(
+        ref_build_model(ref_cfg, max_seq=16).init_params)(jax.random.PRNGKey(0)))
+    back = lm_params_to_reference(lm_params_from_reference(tree, reduced_for_smoke(
+        get_config(name)), "cpu"), reduced_for_smoke(get_config(name)))
+    ref_leaves = dict(jax.tree_util.tree_leaves_with_path(tree))
+    port_leaves = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert port_leaves.keys() == ref_leaves.keys()
+    dtypes = set()
+    for path, a in ref_leaves.items():
+        t = port_leaves[path]
+        dtypes.add(str(a.dtype))
+        assert str(t.dtype) == f"torch.{a.dtype}", jax.tree_util.keystr(path)
+        assert np.array_equal(t.float().numpy(), a.astype(np.float32)), jax.tree_util.keystr(path)
+    assert "bfloat16" in dtypes
+    assert ("float32" in dtypes) == (ref_cfg.family != "audio")
+
+
+@pytest.mark.parametrize("name", ref_list_archs())
 def test_roofline_counts_the_published_model(name):
     """``lm_param_counts`` equals the parameters ``init_params`` makes with
-    the head padding off; ``lm_step_roofline`` counts a prefill and a
-    decode step by hand."""
+    the head padding off, for every arch; ``lm_step_roofline`` counts a
+    prefill and a decode step by hand for the attention-block decoders
+    (dense and MoE) and refuses the others."""
     from repro_torch.utils import roofline as R
     cfg = get_config(name)
     specs = build_model(cfg.scaled(tp_pad_heads_to=0)).param_specs()
     counts = R.lm_param_counts(cfg)
     assert counts["total"] == sum(p.numel() for p in specs.parameters())
-    assert counts["layer"] == sum(p.numel() for p in specs.blocks[0].parameters())
+    if cfg.family == "audio":
+        assert counts["enc_layer"] == sum(p.numel() for p in specs.enc_blocks[0].parameters())
+        assert counts["dec_layer"] == sum(p.numel() for p in specs.dec_blocks[0].parameters())
+        assert counts["pos_dec"] == specs.pos_dec.numel()
+    else:
+        for blk, btype in zip(specs.blocks, PT.block_layout(cfg)):
+            assert counts["layers"][btype] == sum(p.numel() for p in blk.parameters())
+    if cfg.family == "audio" or cfg.mla is not None or cfg.block_pattern:
+        with pytest.raises(ValueError, match="attention blocks only"):
+            R.lm_step_roofline(cfg, 8, 1, 100)
+        return
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    mm = 2 * D * H * hd + 2 * D * KV * hd + D * cfg.d_ff * (3 if cfg.ffn == "swiglu" else 2)
+    mm = 2 * D * H * hd + 2 * D * KV * hd
+    experts = router_f32 = 0
+    if cfg.moe is not None:         # olmoe: E 64, K 8, cf 1.25, no shared
+        m = cfg.moe
+        assert counts["expert"] == 3 * D * m.d_ff_expert and m.n_shared == 0
+        assert counts["active"] == counts["total"] - L * (m.n_experts - m.top_k) * counts["expert"]
+        mm += D * m.n_experts                       # the router, 2 ops a weight too
+        experts = 2 * L * m.n_experts * counts["expert"]     # per slot of each buffer
+        router_f32 = L * D * m.n_experts * 2
+    else:
+        mm += D * cfg.d_ff * (3 if cfg.ffn == "swiglu" else 2)
     bpe = 2
     kv_row = L * 2 * KV * hd
     head = V * D + (0 if cfg.tie_embeddings else 8 * 4 * D)
-    pre = R.lm_step_roofline(cfg, 8, 4, 4)          # 8 sequences of 4
-    assert pre.flops == 2 * 32 * L * mm + 4 * L * H * hd * 8 * 10 + 2 * D * V * 8
+    pre = R.lm_step_roofline(cfg, 8, 4, 4)          # 8 sequences of 4: C = 5
+    assert pre.flops == (2 * 32 * L * mm + experts * 5 + 4 * L * H * hd * 8 * 10
+                         + 2 * D * V * 8)
     assert pre.hbm_bytes == bpe * (L * counts["layer"] + counts["final_norm"] + head
-                                   + 32 * kv_row + 8 * V) + 4 * 32
-    dec = R.lm_step_roofline(cfg, 8, 1, 100)        # context 100: 99 cached
-    assert dec.flops == 2 * 8 * L * mm + 4 * L * H * hd * 8 * 100 + 2 * D * V * 8
+                                   + 32 * kv_row + 8 * V) + router_f32 + 4 * 32
+    routed = 2 * L * 32 * cfg.moe.top_k * counts["expert"] if cfg.moe is not None else 0
+    assert pre.model_flops == pre.flops - experts * 5 + routed   # T * K copies, not E * C
+    dec = R.lm_step_roofline(cfg, 8, 1, 100)        # context 100: 99 cached; C = 2
+    assert dec.flops == (2 * 8 * L * mm + experts * 2 + 4 * L * H * hd * 8 * 100
+                         + 2 * D * V * 8)
     head = V * D + (0 if cfg.tie_embeddings else 8 * D)
     assert dec.hbm_bytes == bpe * (L * counts["layer"] + counts["final_norm"] + head
-                                   + 8 * 99 * kv_row + 8 * kv_row + 8 * V) + 4 * 8
+                                   + 8 * 99 * kv_row + 8 * kv_row + 8 * V) + router_f32 + 4 * 8
     assert dec.bound_by == "bytes"
     assert R.lm_step_roofline(cfg, 8, 512, 512).bound_by == "operations"
