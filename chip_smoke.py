@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's resident OMS main path on one GPU.
+"""Drive the PyTorch/CUDA port's resident OMS main path, then its LM serve
+and training paths, on one GPU.
 
     python3 chip_smoke.py
 
@@ -153,11 +154,33 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      steps at context 513..576 (CUDA events a step; median ms, the share of
      the HBM bound), peak device memory, and the decode of token 513
      against a full forward over 513 tokens within 5e-2 of max |ref|.
+ 20. LM training, after phase 19; it launches none of the five kernels.
+     Width checks in float32 with TF32 off: llama3.2-3b and olmoe-1b-7b
+     (capacity factor 1.25: copies drop, so the MoE gathers' autograd
+     Functions run) at full width and 2 layers, weights drawn on the card
+     and copied to the host, from ``data.tokens.synthetic_batches`` at
+     2 x 64: the gradients of one batch, then two ``train_step``s (the
+     schedule's lr is 0 at step 0), card against CPU: losses within 1e-4
+     relative, every gradient, m and v leaf within 1e-3 of max |CPU|, the
+     params within 1e-3 of max |CPU| plus the error AdamW propagates from
+     rounding-level gradients. Llama-3.2-3B at full width and depth in
+     bf16 with remat at 4 x 512 (2 x 512 if that does not fit): one
+     warm-up step, 5 steps timed with CUDA events (median ms, MFU against
+     ``utils/roofline.lm_train_roofline``), each loss and grad_norm finite,
+     peak device memory, one step under torch.profiler; no full-width
+     checkpoint. The llama3.2-3b smoke config in bf16 trained two steps on
+     the card, saved and restored onto the card bit for bit, its manifest
+     equal to the same state's saved from the host. ``python -m
+     repro_torch.launch.train --arch llama3.2-3b --smoke --steps 20 --batch
+     8 --seq 128 --microbatches 2 --ckpt-every 5`` as subprocesses:
+     ``--fail-at 12`` exits nonzero with SimulatedFailure after committing
+     step 10, the rerun resumes at 10 and logs steps 10..19 and ends at 20,
+     ``--compress-grads`` from a fresh directory ends below its first loss.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
 the path and read just after. Phase 19's numbers go into one ``lm`` JSON
-line before it.
+line and phase 20's into one ``train`` line before it.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the reference package.
@@ -165,6 +188,7 @@ neither jax nor the reference package.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -186,7 +210,7 @@ CHUNK_ROWS = 1 << 16     # library rows per ingest chunk
 TIMING_ITERS = 10
 GRAPH_LAUNCHES = 20      # launches per captured CUDA graph (device times)
 
-FUSED_PLAIN_ITERS = 3    # the plain search takes ~20 s per full batch
+FUSED_PLAIN_ITERS = 1    # the plain search takes ~20 s per full batch
 NARROW_W = 7             # a word count that takes the kernels' scalar paths
 TILE_CHECK_W = (64, 8, NARROW_W)   # the prefix widths and a scalar-load width
 BUCKET_CHECK_BLOCKS = 2  # query blocks held against the cascade's row bucket
@@ -340,6 +364,29 @@ LM_PROFILE_TOP = 8       # kernels listed by device time
 # tokens, bf16: the two take different matmul shapes (1 row against 513),
 # so their bf16 roundings differ and compound over 28 layers.
 LM_DECODE_TOL = 5e-2
+
+# Phase 20: LM training (no OMS kernel runs on it). Width checks in float32
+# (TF32 off) at full width cut to TRAIN_WIDTH_LAYERS layers, OLMoE at
+# capacity factor 1.25 (copies drop, so the MoE gather Functions' backwards
+# run): the gradients of one batch and TRAIN_WIDTH_STEPS train steps on the
+# card against the CPU from the same weights (the schedule's lr is 0 at
+# step 0, so the second step is the first to move the params).
+TRAIN_WIDTH_ARCHS = ("llama3.2-3b", "olmoe-1b-7b")
+TRAIN_WIDTH_B, TRAIN_WIDTH_S, TRAIN_WIDTH_LAYERS, TRAIN_WIDTH_STEPS = 2, 64, 2, 2
+TRAIN_MOE_CAPACITY = 1.25
+TRAIN_LOSS_TOL = 1e-4    # relative
+TRAIN_TOL = 1e-3         # max |Δ| / max |CPU| of a leaf (gradients, m, v)
+# Full-width training: Llama-3.2-3B at full depth in bf16 with remat, one
+# warm-up step, then TRAIN_STEPS timed steps (CUDA events), then one step
+# under torch.profiler; at TRAIN_BATCH // 2 if TRAIN_BATCH does not fit.
+TRAIN_ARCH = "llama3.2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+# The launcher as subprocesses: a failure at step 12 after committing step
+# 10, the resume to step 20, and a compressed run from a fresh directory.
+TRAIN_CKPT_DIR = HERE / "build" / "smoke_train_ckpt"
+TRAIN_CLI = ("--arch", "llama3.2-3b", "--smoke", "--steps", "20", "--batch", "8",
+             "--seq", "128", "--microbatches", "2", "--ckpt-every", "5",
+             "--log-every", "1")
 
 
 def log(msg: str) -> None:
@@ -1875,11 +1922,12 @@ def phase_multi_device(torch, pipe, spipe, cfg, hvs, q_pmz, q_charge) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def oms_cli(args, what: str, *, stdin=None, stdout=None, module: str = "oms"):
+def oms_cli(args, what: str, *, stdin=None, stdout=None, module: str = "oms",
+            expect_failure: bool = False):
     """Run ``python -m repro_torch.launch.<module> *args`` from the
     repository root (stdin / stdout from / to the given paths, else none /
-    captured); fails unless it exits 0. Returns (stdout text, stderr text,
-    seconds)."""
+    captured); fails unless it exits 0 (with ``expect_failure``, unless it
+    exits nonzero). Returns (stdout text, stderr text, seconds)."""
     import os
     cmd = [sys.executable, "-m", f"repro_torch.launch.{module}", *map(str, args)]
     env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
@@ -1899,7 +1947,8 @@ def oms_cli(args, what: str, *, stdin=None, stdout=None, module: str = "oms"):
             if f is not None:
                 f.close()
     dt = time.perf_counter() - t0
-    require(res.returncode == 0, f"{what}: `{module} {' '.join(cmd[3:])}` exited "
+    require((res.returncode != 0) == expect_failure,
+            f"{what}: `{module} {' '.join(cmd[3:])}` exited "
             f"{res.returncode}: {res.stderr[-3000:]}")
     return res.stdout or "", res.stderr, dt
 
@@ -2959,6 +3008,384 @@ def phase_lm(torch, env) -> dict:
             "full_model": full, "layers_bf16": layers, "phase_s": dt}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: LM training
+# ---------------------------------------------------------------------------
+
+
+def _reference_leaves(tree) -> dict:
+    """A parameter-shaped module (params, a gradient list made one, m, v)
+    in the reference's stacked layout, flattened to {keystr path: tensor}."""
+    from repro_torch.convert import lm_params_to_reference
+
+    def flat(d, prefix=""):
+        out = {}
+        for k in sorted(d):
+            if isinstance(d[k], dict):
+                out.update(flat(d[k], f"{prefix}[{k!r}]"))
+            else:
+                out[f"{prefix}[{k!r}]"] = d[k]
+        return out
+
+    return flat(lm_params_to_reference(tree))
+
+
+def _leaf_errs(card: dict, host: dict) -> dict:
+    """max |card - host| / max |host| per leaf (0 where both are 0)."""
+    out = {}
+    for k, h in host.items():
+        h = h.float()
+        d = float((card[k].float().cpu() - h).abs().max())
+        out[k] = d / (float(h.abs().max()) or 1.0)
+    return out
+
+
+def _params_bound_excess(card: dict, host: dict, v: dict, lr: float, steps: int) -> tuple:
+    """The params after AdamW steps: each element within TRAIN_TOL of its
+    leaf's max |CPU| plus the error the optimizer propagates from the
+    gradients, 4 lr ``steps`` min(1, TRAIN_TOL max(rms) / rms) (Adam divides
+    each gradient element by its RMS ``sqrt(v)``, so an element whose
+    gradient lies at the rounding level takes an O(lr) step of either sign
+    on either device). Returns (the largest max |Δ| / max |CPU| of any leaf,
+    the number of elements past TRAIN_TOL of their leaf's max, the largest
+    ratio of |Δ| to its bound)."""
+    worst, past, ratio = 0.0, 0, 0.0
+    for k, h in host.items():
+        h = h.float()
+        d = (card[k].float().cpu() - h).abs()
+        scale = float(h.abs().max()) or 1.0
+        rms = v[k].float().sqrt()
+        rel = (TRAIN_TOL * float(rms.max()) / rms.clamp(min=1e-30)).clamp(max=1.0)
+        bound = TRAIN_TOL * scale + 4 * lr * steps * rel
+        worst = max(worst, float(d.max()) / scale)
+        past += int((d > TRAIN_TOL * scale).sum())
+        ratio = max(ratio, float((d / bound).max()))
+    return worst, past, ratio
+
+
+def _state_on(state, device):
+    """A copy of a TrainState on ``device``, every leaf in its own dtype."""
+    from repro_torch.train.step import TrainState
+    from repro_torch.utils.treeutil import tree_map
+
+    def to(tree):
+        return None if tree is None else tree_map(
+            lambda t: t.detach().to(device).requires_grad_(t.requires_grad), tree)
+
+    return TrainState(params=to(state.params), opt=to(state.opt), step=state.step.to(device),
+                      grad_err=to(state.grad_err))
+
+
+def train_width_check(torch, name: str) -> dict:
+    """``name`` at full width and TRAIN_WIDTH_LAYERS layers in float32 (MoE
+    at TRAIN_MOE_CAPACITY): the weights drawn on the card, the same state
+    carried to the host (``convert.train_state_to_reference`` and back);
+    the gradients of the first batch, then TRAIN_WIDTH_STEPS train steps
+    (warmup 1) on both, the losses within TRAIN_LOSS_TOL, every gradient,
+    ``m`` and ``v`` leaf within TRAIN_TOL of its max |CPU| and the params
+    within the bound of ``_params_bound_excess``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step, value_and_grad
+    from repro_torch.utils.treeutil import tree_unflatten_like
+    cfg = get_config(name).scaled(dtype="float32", n_layers=TRAIN_WIDTH_LAYERS)
+    if cfg.moe is not None:
+        cfg = _with_capacity(cfg, TRAIN_MOE_CAPACITY)
+    B, S = TRAIN_WIDTH_B, TRAIN_WIDTH_S
+    model = build_model(cfg, max_seq=S, chunk=S)
+    opt = AdamWConfig()
+    t0 = time.perf_counter()
+    card = init_train_state(model, torch.Generator(DEVICE).manual_seed(SEED), device=DEVICE)
+    host = _state_on(card, "cpu")
+    n = sum(p.numel() for p in card.params.parameters())
+    data = synthetic_batches(cfg, batch=B, seq=S, family=cfg.family, seed=SEED, device="cpu")
+    batches = [next(data) for _ in range(TRAIN_WIDTH_STEPS)]
+
+    def on(batch, dev):
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    grads = {}
+    losses = {}
+    for dev, st in ((DEVICE, card), ("cpu", host)):
+        loss, g = value_and_grad(model, st.params, on(batches[0], dev))
+        grads[dev] = _reference_leaves(tree_unflatten_like(st.params, g))
+        losses[dev] = [float(loss)]
+        del g
+    grad_errs = _leaf_errs(grads[DEVICE], grads["cpu"])
+    del grads
+    step = make_train_step(model, opt, warmup=1, total_steps=10)
+    step_losses = {}
+    for dev, st in ((DEVICE, card), ("cpu", host)):
+        step_losses[dev] = []
+        for b in batches:
+            st, met = step(st, on(b, dev))
+            step_losses[dev].append(float(met["loss"]))
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses[DEVICE] + step_losses[DEVICE],
+                                                     losses["cpu"] + step_losses["cpu"])]
+    m_errs = _leaf_errs(_reference_leaves(card.opt["m"]), _reference_leaves(host.opt["m"]))
+    v_host = _reference_leaves(host.opt["v"])
+    v_errs = _leaf_errs(_reference_leaves(card.opt["v"]), v_host)
+    p_worst, p_past, p_ratio = _params_bound_excess(
+        _reference_leaves(card.params), _reference_leaves(host.params), v_host, opt.lr,
+        TRAIN_WIDTH_STEPS)
+    del card, host
+    out = {"layers": cfg.n_layers, "params": n, "batch": [B, S],
+           "capacity_factor": cfg.moe.capacity_factor if cfg.moe is not None else None,
+           "loss_rel_err": max(loss_errs), "grad_err": max(grad_errs.values()),
+           "grad_worst_leaf": max(grad_errs, key=grad_errs.get),
+           "m_err": max(m_errs.values()), "v_err": max(v_errs.values()),
+           "params_err": p_worst, "params_elements_past_tol": p_past,
+           "params_bound_ratio": p_ratio, "losses_card": step_losses[DEVICE]}
+    log(f"[train] {name} full width, {cfg.n_layers} layers, {n / 1e9:.3f} B params, "
+        f"float32{'' if cfg.moe is None else f' capacity_factor={cfg.moe.capacity_factor:g}'}"
+        f": card vs CPU loss {max(loss_errs):.3e} (bound {TRAIN_LOSS_TOL}), gradients "
+        f"{out['grad_err']:.3e} ({out['grad_worst_leaf']}), after {TRAIN_WIDTH_STEPS} "
+        f"steps m {out['m_err']:.3e}, v {out['v_err']:.3e} (bound {TRAIN_TOL}), params "
+        f"{p_worst:.3e} of max |CPU| ({p_past} elements past {TRAIN_TOL}, largest share "
+        f"of the propagated bound {p_ratio:.3f}); {time.perf_counter() - t0:.1f}s")
+    require(max(loss_errs) < TRAIN_LOSS_TOL, f"{name} train losses card vs CPU: {loss_errs}")
+    for what, errs in (("gradient", grad_errs), ("m", m_errs), ("v", v_errs)):
+        bad = {k: e for k, e in errs.items() if not e < TRAIN_TOL}
+        require(not bad, f"{name} {what} leaves card vs CPU past {TRAIN_TOL}: {bad}")
+    require(p_ratio <= 1.0, f"{name} params card vs CPU past their bound: {p_ratio:.3f}")
+    return out
+
+
+def train_full_model(torch, B: int) -> dict:
+    """TRAIN_ARCH at full width and depth in bf16 with remat: one warm-up
+    step, TRAIN_STEPS steps timed with CUDA events (and on the host clock,
+    ended by the loss's read), one step under torch.profiler (device
+    activity only), then the gradients and the AdamW update of one step
+    timed apart; each step's loss and grad_norm finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train.step import init_train_state, make_train_step, value_and_grad
+    from repro_torch.utils import roofline as R
+    from repro_torch.utils.treeutil import tree_bytes
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, max_seq=TRAIN_SEQ, chunk=TRAIN_SEQ, remat=True)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_padded = sum(p.numel() for p in state.params.parameters())
+    state_bytes = {"params": tree_bytes(state.params),
+                   "m_v": tree_bytes(state.opt["m"]) + tree_bytes(state.opt["v"])}
+    step = make_train_step(model, AdamWConfig(), warmup=1, total_steps=TRAIN_STEPS + 2)
+    data = synthetic_batches(cfg, batch=B, seq=TRAIN_SEQ, family=cfg.family, seed=SEED,
+                             device=DEVICE)
+    batches = [next(data) for _ in range(TRAIN_STEPS + 2)]
+    losses, gnorms, ms, wall = [], [], [], []
+    for batch in batches[:-1]:
+        torch.cuda.synchronize()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        ev[0].record()
+        state, met = step(state, batch)
+        ev[1].record()
+        losses.append(float(met["loss"]))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(met["grad_norm"]))
+        ms.append(ev[0].elapsed_time(ev[1]))
+        require(math.isfinite(losses[-1]) and math.isfinite(gnorms[-1]),
+                f"{TRAIN_ARCH} train step {len(losses) - 1}: loss {losses[-1]}, "
+                f"grad_norm {gnorms[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with serve_profiler(torch) as prof:
+        t0 = time.perf_counter()
+        state, met = step(state, batches[-1])
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    profile = device_profile(prof, prof_wall, top=LM_PROFILE_TOP)
+    profile.pop("kernels")
+    # where a step goes: the gradients (forward, recompute, backward) and
+    # the AdamW update alone, each between CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    _, grads = value_and_grad(model, state.params, batches[-1])
+    ev[1].record()
+    adamw_update(state.params, grads, state.opt, AdamWConfig())
+    ev[2].record()
+    torch.cuda.synchronize()
+    split = {"grads_ms": ev[0].elapsed_time(ev[1]), "adamw_ms": ev[1].elapsed_time(ev[2])}
+    # AdamW's bound: read params, grads (bf16), m, v (float32); write params, m, v
+    adamw_bytes = sum(p.numel() * (3 * p.element_size() + 16)
+                      for p in state.params.parameters())
+    split["adamw_bound_ms"] = adamw_bytes / R.HBM_BYTES_PER_S * 1e3
+    del state, met, batches, grads
+    roof = R.lm_train_roofline(cfg, B, TRAIN_SEQ, remat=True)
+    med = statistics.median(ms[1:])
+    out = {"arch": TRAIN_ARCH, "dtype": cfg.dtype, "layers": cfg.n_layers, "remat": True,
+           "batch": B, "seq": TRAIN_SEQ, "params_real": R.lm_param_counts(cfg)["total"],
+           "params_padded": n_padded, "state_bytes": state_bytes, "init_s": init_s,
+           "step_ms": ms[1:], "step_ms_median": med, "warmup_step_ms": ms[0],
+           "step_wall_ms": wall[1:], "losses": losses, "grad_norms": gnorms,
+           "tokens_per_s": B * TRAIN_SEQ / (med / 1e3),
+           "flops": roof.flops, "model_flops": roof.model_flops,
+           "bound_ms": roof.t_bound * 1e3, "bound_by": roof.bound_by,
+           "mfu": roof.model_flops / (med / 1e3) / R.PEAK_FLOPS_BF16,
+           "bound_share": roof.t_bound * 1e3 / med,
+           "peak_bytes": peak, "peak_bytes_above_baseline": peak - base,
+           "device_profile_one_step": profile, "split": split}
+    log(f"[train] {TRAIN_ARCH} bf16, {cfg.n_layers} layers, remat: {n_padded / 1e9:.3f} B "
+        f"params as padded; params {state_bytes['params'] / 1e9:.2f} GB, m + v "
+        f"{state_bytes['m_v'] / 1e9:.2f} GB; init on the card {init_s:.2f}s")
+    log(f"[train] step {B}x{TRAIN_SEQ}: {med:.3f} ms (median of {TRAIN_STEPS}; "
+        f"{', '.join(f'{x:.2f}' for x in ms[1:])}; warm-up {ms[0]:.2f}; host clock "
+        f"{statistics.median(wall[1:]):.2f}), {out['tokens_per_s']:.0f} tok/s, "
+        f"{roof.model_flops / 1e12:.2f} TFLOP (6NT-style, {roof.flops / 1e12:.2f} with "
+        f"the recompute), bound {roof.t_bound * 1e3:.3f} ms ({roof.bound_by}), MFU "
+        f"{out['mfu']:.4f}")
+    log(f"[train] losses {', '.join(f'{x:.4f}' for x in losses)}; grad_norm "
+        f"{', '.join(f'{x:.4f}' for x in gnorms)}")
+    log(f"[train] peak device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} "
+        f"GiB above the phase's baseline)")
+    log(f"[train] one step's parts (CUDA events): gradients {split['grads_ms']:.3f} ms, "
+        f"AdamW update {split['adamw_ms']:.3f} ms (its bound {split['adamw_bound_ms']:.3f} "
+        f"ms, bytes)")
+    log(f"[train] device profile of one step: busy {profile['busy_ms']:.3f} of "
+        f"{profile['wall_ms']:.3f} ms wall, idle share {profile['idle_share']:.4f}, "
+        f"{profile['n_events']} device events; top kernels [name, launches, ms]: "
+        f"{json.dumps(profile['top_kernels'])}")
+    return out
+
+
+def train_launcher() -> dict:
+    """``python -m repro_torch.launch.train`` (TRAIN_CLI) as subprocesses:
+    ``--fail-at 12`` exits nonzero with SimulatedFailure after committing
+    step 10; the same command without it resumes at 10, logs the 10 losses
+    of steps 10..19 and ends at 20; ``--compress-grads`` from a fresh
+    directory ends with its last loss below its first."""
+    import re
+    from repro_torch.checkpoint import latest_step
+    fresh = TRAIN_CKPT_DIR.with_name(TRAIN_CKPT_DIR.name + "_compressed")
+    for d in (TRAIN_CKPT_DIR, fresh):
+        shutil.rmtree(d, ignore_errors=True)
+    args = [*TRAIN_CLI, "--ckpt-dir", TRAIN_CKPT_DIR.relative_to(HERE)]
+    out = {}
+    try:
+        _, err, t = oms_cli([*args, "--fail-at", 12], "train --fail-at 12", module="train",
+                            expect_failure=True)
+        committed = latest_step(str(TRAIN_CKPT_DIR))
+        require("SimulatedFailure: injected failure at step 12" in err and committed == 10,
+                f"train --fail-at 12: committed step {committed}; stderr:\n{err[-2000:]}")
+        out["fail_at_12"] = {"process_s": t, "committed": committed}
+        o, _, t = oms_cli(args, "train (resume)", module="train")
+        steps = [int(x) for x in re.findall(r"^\[loop\] step (\d+) loss=", o, re.M)]
+        done = [x for x in o.splitlines() if x.startswith("[train] done at step ")]
+        require("[loop] resuming from checkpoint step 10" in o and steps == list(range(10, 20))
+                and len(done) == 1 and done[0].startswith("[train] done at step 20;"),
+                f"train resume: steps {steps}, output:\n{o[-2000:]}")
+        out["resume"] = {"process_s": t, "line": done[0], "steps_logged": len(steps)}
+        o, _, t = oms_cli([*TRAIN_CLI, "--ckpt-dir", fresh.relative_to(HERE),
+                           "--compress-grads"], "train --compress-grads", module="train")
+        m = re.search(r"^\[train\] done at step 20; loss (\S+) -> (\S+);", o, re.M)
+        require(m is not None and float(m.group(2)) < float(m.group(1)),
+                f"train --compress-grads: the last loss is not below the first:\n{o[-2000:]}")
+        out["compress_grads"] = {"process_s": t, "line": m.group(0),
+                                 "first": float(m.group(1)), "last": float(m.group(2))}
+    finally:
+        for d in (TRAIN_CKPT_DIR, fresh):
+            shutil.rmtree(d, ignore_errors=True)
+    for what, r in out.items():
+        log(f"[train] launcher {what}: {json.dumps(r)}")
+    return out
+
+
+def train_checkpoint_on_card(torch) -> dict:
+    """The llama3.2-3b smoke config in bf16 trained two steps on the card,
+    saved, restored into a state of another init on the card: bit-equal;
+    the same state carried to the host and saved there: manifest equal
+    (names, files, shapes, dtypes, stored dtypes, shas)."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced_for_smoke
+    from repro_torch.data.tokens import synthetic_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.utils.treeutil import tree_leaves
+    cfg = reduced_for_smoke(get_config(TRAIN_ARCH))
+    model = build_model(cfg, max_seq=64, chunk=64)
+    state = init_train_state(model, torch.Generator(DEVICE).manual_seed(SEED), device=DEVICE)
+    step = make_train_step(model, AdamWConfig(lr=1e-2), warmup=1, total_steps=4)
+    data = synthetic_batches(cfg, batch=4, seq=64, family=cfg.family, seed=SEED, device=DEVICE)
+    for _ in range(2):
+        state, _ = step(state, next(data))
+    card_dir, host_dir = (TRAIN_CKPT_DIR.with_name(TRAIN_CKPT_DIR.name + x)
+                          for x in ("_card", "_host"))
+    try:
+        card_path = save_checkpoint(str(card_dir), 2, state)
+        host_path = save_checkpoint(str(host_dir), 2, _state_on(state, "cpu"))
+        target = init_train_state(model, torch.Generator(DEVICE).manual_seed(SEED + 1),
+                                  device=DEVICE)
+        restore_checkpoint(str(card_dir), 2, target)
+        pairs = list(zip(tree_leaves([state.params, state.opt["m"], state.opt["v"],
+                                      state.opt["step"], state.step]),
+                         tree_leaves([target.params, target.opt["m"], target.opt["v"],
+                                      target.opt["step"], target.step])))
+        equal_bits = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                         for a, b in pairs)
+        manifests = [json.loads((Path(p) / "manifest.json").read_text())
+                     for p in (card_path, host_path)]
+    finally:
+        for d in (card_dir, host_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    out = {"leaves": len(manifests[0]["leaves"]), "restored_bit_equal": equal_bits,
+           "manifest_equal_to_host": manifests[0] == manifests[1],
+           "bf16_leaves": sum(x["dtype"] == "bfloat16" for x in manifests[0]["leaves"])}
+    log(f"[train] checkpoint on the card: {json.dumps(out)}")
+    require(equal_bits and out["manifest_equal_to_host"] and out["bf16_leaves"] > 0,
+            f"checkpoint on the card: {out}")
+    return out
+
+
+def phase_train(torch, env) -> dict:
+    """Phase 20: the width checks in float32 (TF32 off), the full-width
+    training steps, the launcher's fail / resume / compressed runs and the
+    checkpoint on the card. Returns the ``train`` JSON line's object."""
+    import gc
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        width = {name: train_width_check(torch, name) for name in TRAIN_WIDTH_ARCHS}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    full, why = None, None
+    for B in (TRAIN_BATCH, TRAIN_BATCH // 2):
+        try:
+            full = train_full_model(torch, B)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            if B != TRAIN_BATCH:
+                raise
+            why = f"B={B} ran out of device memory: {str(e).splitlines()[0]}"
+        log(f"[train] {why}; taking B={TRAIN_BATCH // 2}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    full["smaller_batch_because"] = why
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = train_checkpoint_on_card(torch)
+    cli = train_launcher()
+    dt = time.perf_counter() - t_phase
+    log(f"[train] phase 20 in {dt:.1f}s")
+    return {"card": env["smi"], "width_check_float32": width, "full_model": full,
+            "launcher": cli, "checkpoint": ckpt, "phase_s": dt}
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
@@ -3036,6 +3463,7 @@ def main() -> int:
                     for x in ("head", "twice", "new", "in_process"))):
             f.unlink(missing_ok=True)
     lm = phase_lm(torch, env)
+    train = phase_train(torch, env)
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         if k["name"] in ("fused_search", "fused_search_mxu"):
@@ -3043,6 +3471,7 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t_all:.1f}s; peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"lm": lm}))
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,10 @@ absent. The TPU kernels on the resident search path are hand-written CUDA
 kernels under ``repro_torch/kernels/**/csrc``; each has a plain PyTorch
 version beside it, used when its tensors lie on the CPU.
 
-The dense LM serve path (``repro_torch.configs``, ``repro_torch.models``,
-``repro_torch.launch.serve``) runs no TPU kernel in the reference and is
-plain PyTorch here.
+The LM serve and training paths (``repro_torch.configs``,
+``repro_torch.models``, ``optim``, ``train``, ``checkpoint``,
+``repro_torch.launch.serve`` / ``train``) run no TPU kernel in the
+reference and are plain PyTorch here.
 
 Entry points (``OMSPipeline`` and friends, ``Model``) run on the card
 unless the caller passes ``device="cpu"``; see

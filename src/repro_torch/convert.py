@@ -142,41 +142,49 @@ def lm_params_from_reference(tree, cfg, device="cpu"):
             _unstack(tree["dec_blocks"], cfg.n_layers, device),
             _module(_map_tree(leaf, tree["enc_norm"])),
             _module(_map_tree(leaf, tree["dec_norm"])))
+    layout = T.block_layout(cfg)
     stacks = {t: iter(_unstack(tree[t], n, device)) for t, n in T.type_counts(cfg).items()}
-    blocks = [next(stacks[t]) for t in T.block_layout(cfg)]
+    blocks = [next(stacks[t]) for t in layout]
     unembed = tree.get("unembed")
     return T.LMParams(leaf(tree["embed"]), _module(_map_tree(leaf, tree["final_norm"])),
-                      blocks, None if unembed is None else leaf(unembed))
+                      blocks, None if unembed is None else leaf(unembed), layout=layout)
 
 
-def lm_params_to_reference(params, cfg) -> dict:
+def lm_reference_leaves(params) -> dict:
+    """The port's LM params (or a copy of their structure, as the
+    optimizer's ``m`` / ``v``) in the reference's layout, unstacked: nested
+    dicts whose leaves are a tensor, or, for a leaf the reference stacks
+    over layers, the list of the layers' tensors in stack order. The
+    block types come from ``LMParams.layout``; the audio family stacks
+    ``enc_blocks`` and ``dec_blocks``."""
+    def tree(m):
+        return {k: tree(v) if isinstance(v, nn.Module) else v for k, v in m.items()}
+
+    def group(blocks):
+        def join(ts):
+            return {k: join([t[k] for t in ts]) if isinstance(ts[0][k], dict)
+                    else [t[k] for t in ts] for k in ts[0]}
+        return join([tree(b) for b in blocks])
+
+    if isinstance(params, W.WhisperParams):
+        return {"embed": params.embed, "pos_dec": params.pos_dec,
+                "enc_blocks": group(params.enc_blocks),
+                "dec_blocks": group(params.dec_blocks),
+                "enc_norm": tree(params.enc_norm), "dec_norm": tree(params.dec_norm)}
+    out = {"embed": params.embed, "final_norm": tree(params.final_norm)}
+    if params.unembed is not None:
+        out["unembed"] = params.unembed
+    for t in dict.fromkeys(params.layout):
+        out[t] = group([b for b, bt in zip(params.blocks, params.layout) if bt == t])
+    return out
+
+
+def lm_params_to_reference(params) -> dict:
     """The port's LM params in the reference's layout: nested dicts of
     tensors, the layers stacked per block type (``enc_blocks`` /
     ``dec_blocks`` for audio). Works on ``meta`` parameters too."""
-    def tree(m):
-        return {k: tree(v) if isinstance(v, nn.Module) else v.detach()
-                for k, v in m.items()}
-
-    def stack(blocks):
-        trees = [tree(b) for b in blocks]
-
-        def join(ts):
-            return {k: join([t[k] for t in ts]) if isinstance(ts[0][k], dict)
-                    else torch.stack([t[k] for t in ts]) for k in ts[0]}
-        return join(trees)
-
-    if cfg.family == "audio":
-        return {"embed": params.embed.detach(), "pos_dec": params.pos_dec.detach(),
-                "enc_blocks": stack(params.enc_blocks),
-                "dec_blocks": stack(params.dec_blocks),
-                "enc_norm": tree(params.enc_norm), "dec_norm": tree(params.dec_norm)}
-    out = {"embed": params.embed.detach(), "final_norm": tree(params.final_norm)}
-    if params.unembed is not None:
-        out["unembed"] = params.unembed.detach()
-    layout = T.block_layout(cfg)
-    for t in T.type_counts(cfg):
-        out[t] = stack([b for b, bt in zip(params.blocks, layout) if bt == t])
-    return out
+    return _map_tree(lambda x: torch.stack([t.detach() for t in x]) if isinstance(x, list)
+                     else x.detach(), lm_reference_leaves(params))
 
 
 def lm_cache_from_reference(tree, device="cpu") -> dict:
@@ -190,3 +198,47 @@ def lm_cache_to_numpy(cache) -> dict:
     ``ml_dtypes``)."""
     return _map_tree(lambda t: (t.float() if t.dtype == torch.bfloat16 else t)
                      .detach().cpu().numpy(), cache)
+
+
+# ---------------------------------------------------------------------------
+# Training state (the reference's TrainState as nested dicts of numpy)
+# ---------------------------------------------------------------------------
+
+
+def train_state_from_reference(state, cfg, device="cpu"):
+    """A reference ``TrainState`` as nested dicts of numpy, ``{"params",
+    "opt": {"m", "v", "step"}, "step", "grad_err"}`` (``grad_err`` None or
+    absent without compression), -> the port's ``TrainState``: params as
+    ``lm_params_from_reference`` makes them, ``m`` / ``v`` / ``grad_err``
+    in the same structure, the steps as int32 tensors."""
+    from repro_torch.train.step import TrainState
+    from repro_torch.utils.treeutil import tree_map
+
+    params = lm_params_from_reference(state["params"], cfg, device)
+
+    def like_params(tree):     # leaves that take no gradient, as adamw_init's
+        return tree_map(torch.Tensor.detach, lm_params_from_reference(tree, cfg, device))
+
+    opt = {"m": like_params(state["opt"]["m"]), "v": like_params(state["opt"]["v"]),
+           "step": _leaf_to_torch(state["opt"]["step"], device)}
+    err = state.get("grad_err")
+    return TrainState(params=params, opt=opt, step=_leaf_to_torch(state["step"], device),
+                      grad_err=None if err is None else like_params(err))
+
+
+def train_state_to_reference(state) -> dict:
+    """The port's ``TrainState`` as the nested dicts of numpy that
+    ``train_state_from_reference`` reads, params, ``m``, ``v`` and
+    ``grad_err`` in the reference's stacked layout; bfloat16 leaves come
+    back as float32 (exact)."""
+    def arrays(tree):
+        return lm_cache_to_numpy(lm_params_to_reference(tree))
+
+    def scalar(t):
+        return t.detach().cpu().numpy()
+
+    return {"params": arrays(state.params),
+            "opt": {"m": arrays(state.opt["m"]), "v": arrays(state.opt["v"]),
+                    "step": scalar(state.opt["step"])},
+            "step": scalar(state.step),
+            "grad_err": None if state.grad_err is None else arrays(state.grad_err)}

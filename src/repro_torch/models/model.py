@@ -1,5 +1,6 @@
 """Unified model facade: one object per architecture with
-init / loss / prefill / decode entry points, used by ``launch/serve.py``.
+init / loss / prefill / decode entry points, used by ``launch/serve.py``
+and ``launch/train.py``.
 
 Counterpart of ``repro.models.model``. Parameters and caches are created
 on the device the caller names; ``None`` means the card and raises without
@@ -24,6 +25,7 @@ class Model:
     cfg: ArchConfig
     max_seq: int = 4096           # KV/positions capacity for serving caches
     chunk: int = 1024             # attention q-chunk
+    remat: bool = False           # checkpoint each block in loss_fn's backward
 
     @property
     def _audio(self) -> bool:
@@ -46,14 +48,16 @@ class Model:
 
     # ---------------- training ----------------
     def loss_fn(self, params, batch) -> torch.Tensor:
-        """Mean next-token cross-entropy plus the MoE aux loss (the forward
-        value; the backward pass is ROADMAP queue 1 item 2)."""
-        cfg = self.cfg
+        """Mean next-token cross-entropy plus the MoE aux loss, a float32
+        scalar that autograd differentiates (``train/step.py``); with
+        ``remat`` each block's activations are recomputed in the backward
+        pass."""
+        cfg, kw = self.cfg, {"chunk": self.chunk, "remat": self.remat}
         if self._audio:
-            enc = W.encode(params, cfg, batch["frame_embeds"], chunk=self.chunk)
-            hidden, _ = W.decode(params, cfg, batch["tokens"], enc_out=enc, chunk=self.chunk)
+            enc = W.encode(params, cfg, batch["frame_embeds"], **kw)
+            hidden, _ = W.decode(params, cfg, batch["tokens"], enc_out=enc, **kw)
             return _ce_loss_whisper(params, hidden, batch)
-        hidden, _, aux = T.forward(params, cfg, batch["tokens"], chunk=self.chunk,
+        hidden, _, aux = T.forward(params, cfg, batch["tokens"], **kw,
                                    **self._vlm_kw(batch, "vision_embeds"))
         return T.lm_loss(params, cfg, hidden, batch["targets"], batch["mask"]) + aux
 

@@ -10,10 +10,13 @@ ported: the (E, C, D) expert buffers are filled by a gather (slot (e, c)
 holds the token ranked ``seg_starts[e] + c`` in the expert-sorted order) and
 the combine gathers each token's K copies back before a float32 weighted
 sum over K. The reference wraps both gathers in ``custom_vjp``s whose
-backward is the dual gather; those exist for the backward pass only and
-come with training. Its ``scatter_add`` branch is a baseline kept there for
-a before/after measurement, and nothing on the serve path reads it, so it
-is not ported.
+backward is the dual gather; here they are two ``torch.autograd.Function``s
+with the same backwards (``dispatch_gather`` / ``combine_gather``).
+Autograd's own transposes would be scatter-adds, which on CUDA accumulate
+in an order of their own; the Functions sum each token's K copies in the
+reference's order and cast back. Its ``scatter_add`` branch is a baseline
+kept there for a before/after measurement, and nothing reads it, so it is
+not ported.
 
 Tie orders follow the reference: ``jax.lax.top_k`` takes the lower expert
 first among equal probabilities, which a stable descending sort gives
@@ -62,9 +65,11 @@ def route(p, xt, cfg):
 def dispatch(idx_k, n_experts: int, C: int):
     """The sort-based dispatch plan of the (T, K) expert choices into
     (E, C) slots: ``slot_tok`` (E, C) the token each slot holds,
-    ``slot_valid`` (E, C), and per token copy (T, K) its slot ``tok_pos``
-    in its expert's buffer and ``tok_keep`` (False: dropped, past the
-    capacity in the expert-sorted, then token-major order)."""
+    ``slot_valid`` (E, C), per token copy (T, K) its slot ``tok_pos`` in
+    its expert's buffer and ``tok_keep`` (False: dropped, past the capacity
+    in the expert-sorted, then token-major order), and ``slot_k`` (E, C)
+    which of its token's K choices a slot holds (the reference's
+    ``slot_tok2[..., 1]``)."""
     T, K = idx_k.shape
     E, dev = n_experts, idx_k.device
     flat_e = idx_k.reshape(-1)                                  # (T*K,)
@@ -82,7 +87,47 @@ def dispatch(idx_k, n_experts: int, C: int):
     inv_sort = torch.argsort(sort_idx, stable=True)             # flat -> rank
     tok_pos = torch.where(keep, pos_in_e, 0)[inv_sort].reshape(T, K)
     tok_keep = keep[inv_sort].reshape(T, K)
-    return (sort_idx // K)[sp], slot_valid, tok_pos, tok_keep
+    return (sort_idx // K)[sp], slot_valid, tok_pos, tok_keep, (sort_idx % K)[sp]
+
+
+class _DispatchGather(torch.autograd.Function):
+    """buf (E, C, D) = xt[slot_tok] where the slot is valid, else 0.
+    Backward: the dual gather, each token's K slots summed over K."""
+
+    @staticmethod
+    def forward(ctx, xt, slot_tok, slot_valid, idx_k, tok_pos, tok_keep):
+        ctx.save_for_backward(idx_k, tok_pos, tok_keep)
+        return torch.where(slot_valid[:, :, None], xt[slot_tok], 0)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        idx_k, tok_pos, tok_keep = ctx.saved_tensors
+        g = torch.where(tok_keep[..., None], dbuf[idx_k, tok_pos], 0)    # (T, K, D)
+        return torch.sum(g, dim=1).to(dbuf.dtype), None, None, None, None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    """(T, K, D) = eo[idx_k, tok_pos] where the copy is kept, else 0.
+    Backward: the dual gather, slot (e, c) reading its (token, k)."""
+
+    @staticmethod
+    def forward(ctx, eo, idx_k, tok_pos, tok_keep, slot_tok, slot_k, slot_valid):
+        ctx.save_for_backward(slot_tok, slot_k, slot_valid)
+        return torch.where(tok_keep[..., None], eo[idx_k, tok_pos], 0)
+
+    @staticmethod
+    def backward(ctx, dg):
+        slot_tok, slot_k, slot_valid = ctx.saved_tensors
+        deo = torch.where(slot_valid[:, :, None], dg[slot_tok, slot_k], 0)
+        return deo, None, None, None, None, None, None
+
+
+def dispatch_gather(xt, slot_tok, slot_valid, idx_k, tok_pos, tok_keep):
+    return _DispatchGather.apply(xt, slot_tok, slot_valid, idx_k, tok_pos, tok_keep)
+
+
+def combine_gather(eo, idx_k, tok_pos, tok_keep, slot_tok, slot_k, slot_valid):
+    return _CombineGather.apply(eo, idx_k, tok_pos, tok_keep, slot_tok, slot_k, slot_valid)
 
 
 def moe_apply(p, x, cfg):
@@ -93,16 +138,16 @@ def moe_apply(p, x, cfg):
     E = m.n_experts
     xt = x.reshape(T, D)
     probs, gate_k, idx_k = route(p, xt, cfg)
-    slot_tok, slot_valid, tok_pos, tok_keep = dispatch(idx_k, E, capacity(T, cfg))
+    slot_tok, slot_valid, tok_pos, tok_keep, slot_k = dispatch(idx_k, E, capacity(T, cfg))
 
     # ---- expert FFN over the (E, C, D) buffers -------------------------
-    buf = torch.where(slot_valid[:, :, None], xt[slot_tok], 0)
+    buf = dispatch_gather(xt, slot_tok, slot_valid, idx_k, tok_pos, tok_keep)
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
     eo = torch.bmm(F.silu(g) * u, p["w_down"])
 
     # ---- combine: gather each token's K copies back --------------------
-    gk = torch.where(tok_keep[..., None], eo[idx_k, tok_pos], 0)     # (T, K, D)
+    gk = combine_gather(eo, idx_k, tok_pos, tok_keep, slot_tok, slot_k, slot_valid)
     out = torch.sum(gk.float() * gate_k[..., None], dim=1).to(x.dtype)
 
     # ---- aux load-balance loss (Switch-style) ---------------------------

@@ -15,6 +15,7 @@ stack in place.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
@@ -87,15 +88,19 @@ def init_block(generator, cfg: ArchConfig, btype: str, dtype, device) -> nn.Modu
 class LMParams(nn.Module):
     """A decoder's weights: ``embed`` (V, D), ``final_norm``, ``unembed``
     (D, V; None when the embeddings are tied) and one block per layer in
-    ``block_layout`` order."""
+    ``block_layout`` order, whose block types ``layout`` names (the
+    checkpoint stacks the layers by type, as the reference stores them)."""
 
-    def __init__(self, embed, final_norm, blocks, unembed=None):
+    def __init__(self, embed, final_norm, blocks, unembed=None, *, layout):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.final_norm = final_norm
         self.blocks = nn.ModuleList(blocks)
         self.register_parameter(
             "unembed", None if unembed is None else nn.Parameter(unembed))
+        self.layout = tuple(layout)
+        if len(self.layout) != len(self.blocks):
+            raise ValueError(f"{len(self.blocks)} blocks, a layout of {len(self.layout)}")
 
 
 def init_params(generator, cfg: ArchConfig, device) -> LMParams:
@@ -104,9 +109,10 @@ def init_params(generator, cfg: ArchConfig, device) -> LMParams:
     unembed = None
     if not cfg.tie_embeddings:
         unembed = L.dense_init(generator, (cfg.d_model, cfg.vocab_size), dtype, device)
-    blocks = [init_block(generator, cfg, t, dtype, device) for t in block_layout(cfg)]
+    layout = block_layout(cfg)
+    blocks = [init_block(generator, cfg, t, dtype, device) for t in layout]
     return LMParams(embed, L.norm_init(cfg.d_model, cfg.norm, dtype, device),
-                    blocks, unembed)
+                    blocks, unembed, layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +219,26 @@ def apply_block(p, x, btype, cfg: ArchConfig, cos_sin, *, cache=None,
 # ---------------------------------------------------------------------------
 
 
+def checkpointed(fn, *args, **kw):
+    """``fn(*args, **kw)`` under activation checkpointing (the reference's
+    ``jax.checkpoint`` of a block): its activations are recomputed in the
+    backward pass instead of kept. The blocks draw no random numbers, so
+    no RNG state is saved."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False, **kw)
+
+
 def forward(params: LMParams, cfg: ArchConfig, tokens, *, positions=None,
             positions3=None, vision_embeds=None, cache=None,
-            cache_index=None, chunk=1024):
+            cache_index=None, chunk=1024, remat=False):
     """Returns (hidden (B,S,D), cache, aux_loss float32). Logits via lm_head().
 
     With a cache and no ``cache_index`` the tokens are prefilled into it
     from position 0; with ``cache_index`` (an int) they are decoded at that
     position. The cache is written in place and returned. ``aux_loss`` is
     the MoE load-balance loss summed over layers (0 without MoE).
+    ``remat`` checkpoints each block when gradients are being taken and
+    there is no cache.
     """
     B, S = tokens.shape
     x = params.embed[tokens.long()]
@@ -242,8 +259,12 @@ def forward(params: LMParams, cfg: ArchConfig, tokens, *, positions=None,
         j = seen.get(btype, 0)
         seen[btype] = j + 1
         c = None if cache is None else {n: t[j] for n, t in cache[btype].items()}
-        x, new_c, aux = apply_block(p, x, btype, cfg, cos_sin, cache=c,
-                                    cache_index=cache_index, chunk=chunk)
+        if remat and cache is None and torch.is_grad_enabled():
+            x, new_c, aux = checkpointed(apply_block, p, x, btype, cfg, cos_sin,
+                                         chunk=chunk)
+        else:
+            x, new_c, aux = apply_block(p, x, btype, cfg, cos_sin, cache=c,
+                                        cache_index=cache_index, chunk=chunk)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
         if c is not None and new_c is not c:

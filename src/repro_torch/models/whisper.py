@@ -16,6 +16,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import checkpointed
 
 
 def _dims(cfg):
@@ -82,17 +83,26 @@ def cross_kv(p, enc_out):
     return k, v
 
 
-def encode(params: WhisperParams, cfg: ArchConfig, frame_embeds, *, chunk=1024):
+def _enc_block(p, x, cfg, chunk):
+    h = L.norm_apply(p["ln1"], x, "layernorm", cfg.norm_eps)
+    o, _ = L.attn_apply(p["attn"], h, None, dims=_dims(cfg), causal=False,
+                        chunk=chunk, use_rope=False)
+    x = x + o
+    h2 = L.norm_apply(p["ln2"], x, "layernorm", cfg.norm_eps)
+    return x + L.ffn_apply(p["ffn"], h2, "mlp_gelu")
+
+
+def encode(params: WhisperParams, cfg: ArchConfig, frame_embeds, *, chunk=1024,
+           remat=False):
+    """Encoder forward; ``remat`` checkpoints each block when gradients are
+    being taken."""
     B, S, D = frame_embeds.shape
     pos = L.sinusoidal_positions(S, D, frame_embeds.device).to(frame_embeds.dtype)
     x = frame_embeds + pos[None]
+    remat = remat and torch.is_grad_enabled()
     for p in params.enc_blocks:
-        h = L.norm_apply(p["ln1"], x, "layernorm", cfg.norm_eps)
-        o, _ = L.attn_apply(p["attn"], h, None, dims=_dims(cfg), causal=False,
-                            chunk=chunk, use_rope=False)
-        x = x + o
-        h2 = L.norm_apply(p["ln2"], x, "layernorm", cfg.norm_eps)
-        x = x + L.ffn_apply(p["ffn"], h2, "mlp_gelu")
+        x = (checkpointed(_enc_block, p, x, cfg, chunk) if remat
+             else _enc_block(p, x, cfg, chunk))
     return L.norm_apply(params.enc_norm, x, "layernorm", cfg.norm_eps)
 
 
@@ -109,10 +119,12 @@ def _dec_block(p, xx, cfg, *, sc=None, cache_index=None, ck=None, cv=None, chunk
 
 
 def decode(params: WhisperParams, cfg: ArchConfig, tokens, *, enc_out=None,
-           cache=None, cache_index=None, chunk=1024):
+           cache=None, cache_index=None, chunk=1024, remat=False):
     """Decoder forward. Returns (hidden, cache).
 
-    * full pass: ``enc_out`` given, no cache     -> (hidden, None)
+    * full pass: ``enc_out`` given, no cache     -> (hidden, None); with
+      ``remat``, each block is checkpointed when gradients are being taken
+      (its cross K/V computed outside, as the reference computes them)
     * prefill:   ``enc_out`` given, a cache      -> fills the self cache in
       place from position 0 and sets the cross K/V
     * decode:    a cache holding the cross K/V, tokens (B, 1) at
@@ -130,6 +142,7 @@ def decode(params: WhisperParams, cfg: ArchConfig, tokens, *, enc_out=None,
         cache["ck"] = torch.stack([k for k, _ in kv]).to(cache["ck"].dtype)
         cache["cv"] = torch.stack([v for _, v in kv]).to(cache["cv"].dtype)
 
+    remat = remat and cache is None and torch.is_grad_enabled()
     for layer, p in enumerate(params.dec_blocks):
         if cache is None:
             ck, cv = cross_kv(p["cross_attn"], enc_out)
@@ -137,8 +150,11 @@ def decode(params: WhisperParams, cfg: ArchConfig, tokens, *, enc_out=None,
         else:
             ck, cv = cache["ck"][layer], cache["cv"][layer]
             sc = {"k": cache["k"][layer], "v": cache["v"][layer]}
-        x = _dec_block(p, x, cfg, sc=sc, cache_index=cache_index, ck=ck, cv=cv,
-                       chunk=chunk)
+        if remat:
+            x = checkpointed(_dec_block, p, x, cfg, ck=ck, cv=cv, chunk=chunk)
+        else:
+            x = _dec_block(p, x, cfg, sc=sc, cache_index=cache_index, ck=ck, cv=cv,
+                           chunk=chunk)
     return L.norm_apply(params.dec_norm, x, "layernorm", cfg.norm_eps), cache
 
 

@@ -104,11 +104,13 @@ def mlstm_parallel(q, k, v, ig, fg, *, chunk: int = 256, separable: bool = True)
             n = qc.shape[2]
             # Inter-chunk (j < c0): D_ij = exp(a_j - kappa) * exp(kappa - cm_i);
             # for j < c0, a_j <= kappa, so the k factor is <= 1 and the
-            # min(., 0) clamp only touches masked columns.
+            # min(., 0) clamp only touches masked columns. At the running
+            # max a_j == kappa exactly: torch.minimum splits the gradient
+            # of that tie in half as jnp.minimum does (a clamp passes it whole).
             kappa = cmc[..., :1]
             m = bc + cmc                                 # row stabiliser
             qs = qc * torch.exp(kappa - cmc)[..., None] * scale
-            ks = kf * torch.exp(torch.clamp(a - kappa, max=0.0))[..., None]
+            ks = kf * torch.exp(torch.minimum(a - kappa, a.new_zeros(())))[..., None]
             s_inter = torch.einsum("bhqd,bhkd->bhqk", qs, ks)
             s_inter = torch.where((j_pos < c0)[None, None, None, :], s_inter, 0.0)
             # Intra-chunk (c0 <= j <= i): logD - m_i <= 0 by definition of m.

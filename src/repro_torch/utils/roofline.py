@@ -360,3 +360,39 @@ def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline
     return Roofline(flops=flops, hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
                     model_flops=rest + routed_flops,
                     ops_per_s=PEAK_FLOPS_BF16, route="bf16 tensor cores")
+
+
+def lm_train_roofline(cfg, batch: int, seq: int, *, remat: bool = False) -> Roofline:
+    """One training step of the published decoder (real heads) of attention
+    blocks on ``batch`` sequences of ``seq`` tokens, restated from
+    ``lm_step_roofline``'s prefill of ``seq``.
+
+    Operations: the forward as ``lm_step_roofline`` counts it, the lm_head
+    over every position (the loss reads all logits); the backward pass
+    twice the forward's; with ``remat`` the blocks' forward once more (the
+    embedding and the head are outside the checkpoints). ``model_flops``:
+    three forwards of the active parameters (the routed copies for MoE), no
+    recompute. Bytes: the forward reads every weight, the backward reads
+    them again and writes their gradients (in the weights' dtype), ``remat``
+    reads the blocks' weights once more; AdamW reads the params, the
+    gradients and the float32 ``m`` / ``v`` and writes the params, ``m``
+    and ``v``; the tokens and targets (int32) and the mask (float32) are
+    read. Activations are not counted: a bound, not an estimate."""
+    fwd = lm_step_roofline(cfg, batch, seq, seq)
+    c = lm_param_counts(cfg)
+    bpe = _DTYPE_BYTES[cfg.dtype]
+    D, V = cfg.d_model, cfg.vocab_size
+    tokens = batch * seq
+    head = 2.0 * D * V * tokens
+    flops = fwd.flops + head - 2.0 * D * V * batch       # the head on every row
+    model_flops = fwd.model_flops + head - 2.0 * D * V * batch
+    router_f32 = (cfg.n_layers * D * cfg.moe.n_experts * (4 - bpe)
+                  if cfg.moe is not None else 0)
+    weights = bpe * c["total"] + router_f32
+    nbytes = 6 * weights + 16 * c["total"] + 12 * tokens
+    if remat:
+        nbytes += weights - bpe * (c["embed"] + c["unembed"] + c["final_norm"])
+    return Roofline(flops=3 * flops + (flops - head if remat else 0.0),
+                    hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
+                    model_flops=3 * model_flops, ops_per_s=PEAK_FLOPS_BF16,
+                    route="bf16 tensor cores")

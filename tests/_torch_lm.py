@@ -5,6 +5,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as ref_get_config
@@ -204,3 +205,190 @@ def decode_matches_full_forward(cfg):
             hid, _, _ = PT.forward(params, cfg, toks, chunk=8, **kw)
         ref = _head(cfg, params, hid[:, -1:])
     assert rel_err(logits_d, ref) < 5e-3
+
+
+# ---------------------------------------------------------------------------
+# training: one reference init, both packages' train steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while a module runs (restored after): the test
+    models are tiny, and with the suite's workers each spinning a thread
+    per core, a smoke-sized step took ~190x longer (0.38 s alone, 72 s
+    beside five busy processes on 8 cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+# float32 on both sides: the loss within 1e-5 relative; each gradient leaf
+# within 1e-4 of its max |ref|; params, m and v after the steps within 1e-4
+LOSS_TOL, TRAIN_TOL = 1e-5, 1e-4
+# xLSTM's gradient is ill-conditioned in float32: the reference's own moves
+# by 1.2e-4 (3.7e-4) of max |grad| in its mLSTM leaves when its params are
+# perturbed by a relative 1e-7 (3e-7), about one ulp; so it is held at 1e-3
+GRAD_TOL = {"xlstm-1.3b": 1e-3}
+# The attention key biases' gradient is zero in exact arithmetic (softmax
+# is invariant to a shift every key shares), so both packages' are rounding
+# noise: held to TRAIN_TOL of the largest gradient of any leaf
+ZERO_GRAD_LEAVES = ("['bk']",)
+
+
+def ref_train_state(ref_cfg, *, seed=0, use_compression=False, **model_kw):
+    """The reference's ``init_train_state`` (jitted) as nested dicts of
+    numpy, the form ``convert.train_state_from_reference`` reads."""
+    from repro.train.step import init_train_state as ref_init
+    st = jax.jit(lambda k: ref_init(ref_build_model(ref_cfg, **model_kw), k,
+                                    use_compression=use_compression))(
+        jax.random.PRNGKey(seed))
+    return ref_state_to_numpy(st)
+
+
+def ref_state_to_numpy(st) -> dict:
+    def arrays(t):
+        return jax.tree_util.tree_map(np.asarray, t)
+
+    return {"params": arrays(st.params), "opt": arrays(st.opt),
+            "step": np.asarray(st.step),
+            "grad_err": None if st.grad_err is None else arrays(st.grad_err)}
+
+
+def ref_state_from_numpy(d):
+    from repro.train.step import TrainState as RefTrainState
+
+    def arrays(t):
+        return None if t is None else jax.tree_util.tree_map(jnp.asarray, t)
+
+    return RefTrainState(params=arrays(d["params"]), opt=arrays(d["opt"]),
+                         step=jnp.asarray(d["step"]), grad_err=arrays(d["grad_err"]))
+
+
+def grads_to_reference(params, grads) -> dict:
+    """The port's gradient list (``tree_leaves(params)`` order) in the
+    reference's stacked layout, as numpy."""
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.utils.treeutil import tree_unflatten_like
+    return lm_cache_to_numpy(lm_params_to_reference(tree_unflatten_like(params, grads)))
+
+
+def _zero_grad(path) -> bool:
+    return jax.tree_util.keystr(path).endswith(ZERO_GRAD_LEAVES)
+
+
+def trees_close(port, ref, tol, what):
+    """Every leaf of two nested dicts of arrays (the same paths) within
+    ``tol`` of its max |ref|; for gradients and AdamW's ``m`` / ``v``, a
+    leaf whose exact gradient is zero within ``tol`` of the largest |ref|
+    of any leaf."""
+    p = dict(jax.tree_util.tree_leaves_with_path(port))
+    r = dict(jax.tree_util.tree_leaves_with_path(ref))
+    assert p.keys() == r.keys(), what
+    top = max(float(np.abs(a).max()) for a in r.values())
+    for path, a in r.items():
+        if what in ("grads", "m", "v") and _zero_grad(path):
+            err = max(np.abs(np.asarray(x, np.float32)).max() for x in (p[path], a)) / top
+        else:
+            err = rel_err(np.asarray(p[path], np.float32), a)
+        assert err < tol, (what, jax.tree_util.keystr(path), err)
+
+
+def params_close(port, ref, ref_v, *, lr, steps, grad_tol):
+    """The params after ``steps`` AdamW steps. Adam divides each gradient
+    element by its RMS, so the error of an element's update is the lr
+    times its gradient's relative error, up to 4 lr a step (the update's
+    bound) where the gradient lies at the rounding level. Each element is
+    held to TRAIN_TOL of its leaf's max |ref| plus that propagated error:
+    4 lr ``steps`` min(1, grad_tol max(rms) / rms), with ``rms`` the
+    reference's RMS gradient ``sqrt(v)`` and ``grad_tol`` the accuracy the
+    gradient check holds (1 for every element of a zero-gradient leaf)."""
+    p = dict(jax.tree_util.tree_leaves_with_path(port))
+    r = dict(jax.tree_util.tree_leaves_with_path(ref))
+    v = dict(jax.tree_util.tree_leaves_with_path(ref_v))
+    assert p.keys() == r.keys() == v.keys()
+    for path, a in r.items():
+        a = np.asarray(a, np.float32)
+        d = np.abs(np.asarray(p[path], np.float32) - a)
+        rms = np.sqrt(np.asarray(v[path], np.float64))
+        rel = np.minimum(1.0, grad_tol * rms.max() / np.maximum(rms, 1e-300))
+        if _zero_grad(path):
+            rel = np.ones_like(rel)
+        bound = TRAIN_TOL * np.abs(a).max() + 4 * lr * steps * rel
+        worst = np.unravel_index(np.argmax(d - bound), d.shape)
+        assert (d <= bound).all(), (jax.tree_util.keystr(path), d[worst], bound[worst])
+
+
+def train_batch(cfg, rng, B=4, S=S):
+    """A training batch (targets the next tokens, a random mask) of the
+    smoke tests' shapes; vlm with 4 vision embeddings and three position
+    streams."""
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": tokens, "targets": np.roll(tokens, -1, axis=1),
+             "mask": (rng.random((B, S)) < 0.8).astype(np.float32)}
+    if cfg.family == "audio":
+        batch["frame_embeds"] = (rng.standard_normal((B, S, cfg.d_model)) * 0.1
+                                 ).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = (rng.standard_normal((B, 4, cfg.d_model)) * 0.1
+                                  ).astype(np.float32)
+        ar = np.arange(S)
+        batch["positions3"] = (np.stack([ar, ar // 2, ar % 3])[:, None, :]
+                               + np.arange(B)[None, :, None]).astype(np.int32)
+    return batch
+
+
+def check_train_steps(ref_cfg, cfg, *, remat=False, n_micro=1, steps=2, seed=0,
+                      lr=1e-3):
+    """From one reference init: the gradients of the first batch (each leaf
+    against the reference's, read back from its first AdamW step: from
+    zero state ``m = (1 - b1) clip g``, exact to a few ulp, which spares a
+    second trace of its backward pass), then ``steps`` train steps of both
+    packages (warmup 1: the first step's lr is 0, the second moves the
+    params), each loss within LOSS_TOL and ``grad_norm`` within TRAIN_TOL,
+    ``m`` and ``v`` after them within TRAIN_TOL (GRAD_TOL for xLSTM) and
+    the params as ``params_close`` holds them. Returns the port's losses."""
+    from repro.optim.adamw import AdamWConfig as RefAdamW
+    from repro.train.step import make_train_step as ref_make_step
+    from repro_torch.convert import train_state_from_reference, train_state_to_reference
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import make_train_step, value_and_grad
+
+    kw = dict(max_seq=S, chunk=8, remat=remat)
+    rm, pm = ref_build_model(ref_cfg, **kw), build_model(cfg, **kw)
+    init = ref_train_state(ref_cfg, seed=seed, **kw)
+    step_kw = dict(n_microbatches=n_micro, warmup=1, total_steps=10)
+    ref_cfg_opt = RefAdamW(lr=lr)
+    ref_step = jax.jit(ref_make_step(rm, ref_cfg_opt, **step_kw))
+    port_step = make_train_step(pm, AdamWConfig(lr=lr), **step_kw)
+    rst = ref_state_from_numpy(init)
+    pst = train_state_from_reference(init, cfg, "cpu")
+    rng = np.random.default_rng(seed + 11)
+    losses = []
+    for i in range(steps):
+        batch = train_batch(cfg, rng)
+        rst, met_r = ref_step(rst, ref_batch(batch))
+        if i == 0:
+            loss0, grads = value_and_grad(pm, pst.params, port_batch(batch), n_micro)
+            assert abs(float(loss0) - float(met_r["loss"])) <= \
+                LOSS_TOL * abs(float(met_r["loss"]))
+            gnorm = np.float32(met_r["grad_norm"])
+            clip = min(np.float32(1.0), np.float32(ref_cfg_opt.grad_clip) / (gnorm + np.float32(1e-9)))
+            grads_r = jax.tree_util.tree_map(
+                lambda m: np.asarray(m) / (np.float32(1 - ref_cfg_opt.b1) * clip), rst.opt["m"])
+            trees_close(grads_to_reference(pst.params, grads), grads_r,
+                        GRAD_TOL.get(cfg.name, TRAIN_TOL), "grads")
+        pst, met = port_step(pst, port_batch(batch))
+        assert abs(float(met["loss"]) - float(met_r["loss"])) <= \
+            LOSS_TOL * abs(float(met_r["loss"])), (i, float(met["loss"]), float(met_r["loss"]))
+        assert abs(float(met["grad_norm"]) - float(met_r["grad_norm"])) <= \
+            TRAIN_TOL * float(met_r["grad_norm"])
+        losses.append(float(met["loss"]))
+    port, ref = train_state_to_reference(pst), ref_state_to_numpy(rst)
+    assert int(port["step"]) == int(ref["step"]) == steps
+    assert int(port["opt"]["step"]) == int(ref["opt"]["step"]) == steps
+    for what in ("m", "v"):
+        trees_close(port["opt"][what], ref["opt"][what], GRAD_TOL.get(cfg.name, TRAIN_TOL), what)
+    params_close(port["params"], ref["params"], ref["opt"]["v"], lr=lr, steps=steps,
+                 grad_tol=GRAD_TOL.get(cfg.name, TRAIN_TOL))
+    return losses

@@ -120,6 +120,27 @@ def test_lm_modules_are_covered():
             "repro_torch.models.model", "repro_torch.launch.serve"} <= mods
 
 
+def test_training_modules_are_covered():
+    """The static scan and the jax-free import reach the training path:
+    the tree helpers, the optimizer, the schedule, gradient compression,
+    the train step and loop, checkpoints, the token pipeline and
+    ``launch/train.py``; every reference module under ``optim/``,
+    ``train/`` and ``checkpoint/`` has its counterpart."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    training = {"utils/treeutil.py", "optim/__init__.py", "optim/adamw.py",
+                "optim/schedule.py", "optim/compression.py", "train/__init__.py",
+                "train/step.py", "train/loop.py", "checkpoint/__init__.py",
+                "checkpoint/ckpt.py", "data/tokens.py", "launch/train.py"}
+    assert training <= files
+    for pkg in ("optim", "train", "checkpoint"):
+        ref = {f"{pkg}/{p.name}" for p in (ROOT / "src" / "repro" / pkg).glob("*.py")}
+        assert ref == {f for f in files if f.startswith(pkg + "/")}
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch." + f.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+            for f in training} <= mods
+
+
 def test_launcher_runs_with_jax_absent(tmp_path):
     """``python -m repro_torch.launch.oms`` with jax and the reference
     package made unimportable: ``queries`` runs, ``build`` without

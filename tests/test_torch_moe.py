@@ -74,7 +74,7 @@ def test_moe_apply_drops_the_same_copies(cf):
     assert C == max(int(np.ceil(T * 2 / 4 * cfg.moe.capacity_factor)), 1)
     _, _, idx_k = PM.route({"router": torch.from_numpy(np.array(p["router"]))},
                            torch.from_numpy(x.reshape(T, -1)), cfg)
-    _, slot_valid, _, keep = PM.dispatch(idx_k, 4, C)
+    _, slot_valid, _, keep, _ = PM.dispatch(idx_k, 4, C)
     expect = _kept_by_loop(idx_k.numpy(), 4, C)
     assert np.array_equal(keep.numpy(), expect)
     assert int(slot_valid.sum()) == int(expect.sum())
@@ -98,7 +98,7 @@ def test_zero_router_takes_the_lowest_experts():
     ref_gate, ref_idx = jax.lax.top_k(jnp.full((T, 4), 0.25), 2)
     assert np.array_equal(np.asarray(ref_idx), idx_k.numpy())
     assert torch.equal(gate, torch.full((T, 2), 0.5))
-    _, _, _, keep = PM.dispatch(idx_k, 4, PM.capacity(T, cfg))
+    _, _, _, keep, _ = PM.dispatch(idx_k, 4, PM.capacity(T, cfg))
     assert int(keep.sum()) == 2 * PM.capacity(T, cfg)     # experts 2, 3 idle
 
 
