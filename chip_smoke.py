@@ -176,11 +176,31 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      ``--fail-at 12`` exits nonzero with SimulatedFailure after committing
      step 10, the rerun resumes at 10 and logs steps 10..19 and ends at 20,
      ``--compress-grads`` from a fresh directory ends below its first loss.
+ 21. LM distribution, after phase 20; it launches none of the five
+     kernels. (a) ``distributed.pipeline_forward``: Llama-3.2-3B blocks at
+     full width (heads padded as the config pads them) cut to 8 layers, 4
+     stages of 2 layers on 4 entries of the card, 8 micro-batches of 1 x
+     512, float32 with TF32 off, ``transformer.apply_block`` per layer,
+     against the sequential loop over the same 8 blocks within 1e-3 of
+     max |ref|; both timed (CUDA events). (b) elastic: an 8 x 8 tensor on
+     a (4, 2) mesh of 8 card entries, 2 entries lost, ``remesh`` to (3,
+     2), ``reshard_tree``: the shard shapes the CPU test pins, bit-equal
+     after ``full()``. (c) the Llama-3.2-3B bf16 train state at full width
+     cut to 4 layers (params, ``m`` normal, ``v`` uniform) saved, then
+     ``restore_checkpoint(shardings=...)`` onto a (data 2, model 2) mesh
+     of 4 card entries by ``param_pspecs`` / ``opt_state_pspecs`` and
+     ``enforce_divisibility``: every leaf bit-equal after ``full()``, the
+     shards' bytes equal to ``dryrun._sharded_arg_bytes`` x 4 entries, and
+     the allocator's rise in requested bytes equal to them;
+     save and restore seconds and GB/s, and both scaled to the 28-layer
+     state. (d) ``python -m repro_torch.launch.dryrun --all --both-meshes``
+     as a subprocess: 80 records, 64 ``ok`` and 16 ``skipped``.
 All five kernels go into one ``kernels`` JSON line; ``launches`` is the
 main path's count (the backend's own path for the tile and fused_mxu
 kernels) and ``launches_by_path`` each path's, counts set to 0 just before
 the path and read just after. Phase 19's numbers go into one ``lm`` JSON
-line and phase 20's into one ``train`` line before it.
+line, phase 20's into one ``train`` line and phase 21's into one ``dist``
+line before it.
 
 The last line is ``{"ok": true, "device": {...}}``. The script imports
 neither jax nor the reference package.
@@ -387,6 +407,15 @@ TRAIN_CKPT_DIR = HERE / "build" / "smoke_train_ckpt"
 TRAIN_CLI = ("--arch", "llama3.2-3b", "--smoke", "--steps", "20", "--batch", "8",
              "--seq", "128", "--microbatches", "2", "--ckpt-every", "5",
              "--log-every", "1")
+
+# Phase 21: LM distribution (no OMS kernel runs on it).
+DIST_ARCH = "llama3.2-3b"
+PIPE_LAYERS, PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_SEQ = 8, 4, 8, 1, 512
+PIPE_TOL = 1e-3          # max |Δ| / max |ref| of the pipeline's output, float32
+PIPE_ITERS = 3
+CKPT_LAYERS, CKPT_MESH, CKPT_STEP = 4, (2, 2), 7
+DIST_CKPT_DIR = HERE / "build" / "smoke_dist_ckpt"
+DRYRUN_DIR = HERE / "build" / "smoke_dryrun"
 
 
 def log(msg: str) -> None:
@@ -3386,6 +3415,250 @@ def phase_train(torch, env) -> dict:
             "launcher": cli, "checkpoint": ckpt, "phase_s": dt}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: LM distribution
+# ---------------------------------------------------------------------------
+
+
+def dist_pipeline(torch) -> dict:
+    """(a) The GPipe schedule over 4 entries of the card against the
+    sequential loop over the same blocks, float32, TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipeline_forward
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = get_config(DIST_ARCH).scaled(n_layers=PIPE_LAYERS, dtype="float32")
+    dev = torch.empty(0, device=DEVICE).device      # with its index
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    params = build_model(cfg, max_seq=PIPE_SEQ, chunk=PIPE_SEQ).init_params(g, dev)
+    blocks = list(zip(params.blocks, params.layout))
+    per = PIPE_LAYERS // PIPE_STAGES
+    stages = [blocks[s * per:(s + 1) * per] for s in range(PIPE_STAGES)]
+    positions = torch.arange(PIPE_SEQ, device=dev)[None].expand(PIPE_MB, PIPE_SEQ)
+    cos_sin = L.rope_cos_sin(cfg, positions)
+
+    def layer_fn(stage_blocks, h):
+        for p, btype in stage_blocks:
+            h, _, _ = T.apply_block(p, h, btype, cfg, cos_sin, chunk=PIPE_SEQ)
+        return h
+
+    x = torch.randn((PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model), generator=g, device=dev)
+    devices = [dev] * PIPE_STAGES
+
+    def piped():
+        return pipeline_forward(layer_fn, stages, x, n_stages=PIPE_STAGES,
+                                n_micro=PIPE_MICRO, devices=devices)
+
+    def sequential():
+        return torch.stack([layer_fn(blocks, x[m]) for m in range(PIPE_MICRO)])
+
+    with torch.no_grad():
+        got, ref = piped(), sequential()
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        out = {"shape": list(got.shape), "rel_err": err,
+               "pipeline_ms": cuda_ms(piped, iters=PIPE_ITERS),
+               "sequential_ms": cuda_ms(sequential, iters=PIPE_ITERS),
+               "layers": PIPE_LAYERS, "stages": PIPE_STAGES, "micro": PIPE_MICRO,
+               "micro_batch": [PIPE_MB, PIPE_SEQ], "d_model": cfg.d_model,
+               "n_heads": cfg.n_heads}
+    log(f"[dist] pipeline: {json.dumps(out)}")
+    require(tuple(got.shape) == (PIPE_MICRO, PIPE_MB, PIPE_SEQ, cfg.d_model)
+            and math.isfinite(err) and err <= PIPE_TOL,
+            f"pipeline_forward against the sequential loop: {out}")
+    return out
+
+
+def dist_elastic(torch) -> dict:
+    """(b) tests/test_torch_pipeline_elastic.py's elastic case on 8 entries
+    of the card: the shard shapes it pins, bit-equal after ``full()``."""
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import P
+    dev = torch.empty(0, device=DEVICE).device      # with its index
+    mesh = make_mesh((4, 2), ("data", "model"), devices=[dev] * 8)
+    x = torch.arange(64, dtype=torch.float32, device=dev).reshape(8, 8)
+    specs = {"w": P("data", "model")}
+    sharded = elastic.reshard_tree({"w": x}, specs, mesh)
+    new_mesh = elastic.remesh(elastic.simulate_node_failure(mesh, n_lost_nodes=2),
+                              model_axis_size=2)
+    resharded = elastic.reshard_tree(sharded, specs, new_mesh)
+    shapes = {k: sorted({tuple(t.shape) for t in v["w"].shards.flat})
+              for k, v in (("initial", sharded), ("resharded", resharded))}
+    on_card = all(t.device == dev for v in (sharded, resharded) for t in v["w"].shards.flat)
+    out = {"new_mesh": new_mesh.shape, "shard_shapes": shapes,
+           "spec_after": list(resharded["w"].spec), "on_card": on_card,
+           "bit_equal": bool(torch.equal(resharded["w"].full(dev), x)
+                             and torch.equal(sharded["w"].full(dev), x))}
+    log(f"[dist] elastic: {json.dumps(out)}")
+    require(out["bit_equal"] and on_card and new_mesh.shape == {"data": 3, "model": 2}
+            and shapes == {"initial": [(2, 4)], "resharded": [(8, 4)]},
+            f"elastic remesh and reshard: {out}")
+    return out
+
+
+def dist_checkpoint(torch) -> dict:
+    """(c) The full-width bf16 train state cut to CKPT_LAYERS layers,
+    saved, then restored sharded onto a (data 2, model 2) mesh of 4 card
+    entries; every leaf bit-equal after ``full()``; the shards' bytes
+    against ``_sharded_arg_bytes`` x 4 and the allocator's rise."""
+    import gc
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.launch.dryrun import _sharded_arg_bytes
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import TrainState
+    from repro_torch.utils.treeutil import tree_bytes, tree_leaves
+    dev = torch.empty(0, device=DEVICE).device      # with its index
+    cfg = get_config(DIST_ARCH).scaled(n_layers=CKPT_LAYERS)
+    model = build_model(cfg, max_seq=PIPE_SEQ, chunk=PIPE_SEQ)
+    g = torch.Generator(DEVICE).manual_seed(SEED)
+    params = model.init_params(g, dev)
+    opt = adamw_init(params)
+    for m, v in zip(tree_leaves(opt["m"]), tree_leaves(opt["v"])):
+        m.normal_(generator=g)
+        v.uniform_(generator=g)
+    state = TrainState(params, opt, torch.tensor(CKPT_STEP, dtype=torch.int32, device=dev))
+    n_params = sum(p.numel() for p in params.parameters())
+    state_bytes = tree_bytes([params, opt["m"], opt["v"]]) + 4
+    full_params = sum(p.numel() for p in build_model(get_config(DIST_ARCH)).param_specs()
+                      .parameters())
+    full_bytes = full_params * (2 + 4 + 4) + 4
+    DIST_CKPT_DIR.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(DIST_CKPT_DIR.parent).free
+    log(f"[dist] checkpoint: {n_params:,} parameters, {state_bytes / 1e9:.3f} GB of state; "
+        f"{free / 1e9:.1f} GB free under {DIST_CKPT_DIR.parent}")
+    require(free > 1.2 * state_bytes, f"{free / 1e9:.1f} GB free for a "
+            f"{state_bytes / 1e9:.3f} GB checkpoint")
+    shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(str(DIST_CKPT_DIR), CKPT_STEP, state)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in DIST_CKPT_DIR.rglob("*") if f.is_file())
+
+        mesh = make_mesh(CKPT_MESH, ("data", "model"), devices=[dev] * math.prod(CKPT_MESH))
+        meta = model.param_specs()
+        target = TrainState(meta, adamw_init(meta),
+                            torch.empty((), dtype=torch.int32, device="meta"))
+        p_specs = S.enforce_divisibility(S.param_pspecs(meta), meta, mesh)
+        o_specs = S.opt_state_pspecs(meta, p_specs, data_axis="data",
+                                     mesh_axis_size=mesh.shape["data"])
+        o_specs = S.enforce_divisibility(o_specs, target.opt, mesh)
+        specs = TrainState(p_specs, o_specs, S.P(), None)
+        shardings = TrainState(S.named_sharding_tree(mesh, p_specs),
+                               S.named_sharding_tree(mesh, o_specs),
+                               S.NamedSharding(mesh, S.P()), None)
+        per_device = _sharded_arg_bytes((target,), (specs,), mesh)
+        gc.collect()
+        torch.cuda.synchronize()
+        before = (torch.cuda.memory_allocated(), _requested_bytes(torch))
+        t0 = time.perf_counter()
+        restored = restore_checkpoint(str(DIST_CKPT_DIR), CKPT_STEP, target, shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rise = torch.cuda.memory_allocated() - before[0]
+        requested = _requested_bytes(torch) - before[1]
+    finally:
+        shutil.rmtree(DIST_CKPT_DIR, ignore_errors=True)
+    placed = [x for _, x in S.tree_items(restored)]
+    shards = [t for x in placed for t in x.shards.flat]
+    shard_bytes = sum(t.numel() * t.element_size() for t in shards)
+    entries = math.prod(CKPT_MESH)
+    src = [x for _, x in S.tree_items(state)]
+    bit_equal = len(src) == len(placed) and all(t.device == dev for t in shards)
+    for want, got in zip(src, placed):
+        whole = want[:] if isinstance(want, S.Stacked) else want
+        bit_equal = bit_equal and got.dtype == whole.dtype and torch.equal(got.full(dev), whole)
+        del whole
+    out = {"layers": CKPT_LAYERS, "parameters": n_params, "state_bytes": state_bytes,
+           "disk_bytes": disk, "leaves": len(placed), "save_s": save_s,
+           "save_GB_per_s": disk / save_s / 1e9, "restore_s": restore_s,
+           "restore_GB_per_s": disk / restore_s / 1e9, "mesh": mesh.shape,
+           "per_device_bytes": per_device, "shard_bytes": shard_bytes,
+           "reckoned_x_entries": per_device * entries, "allocator_rise": rise,
+           "allocator_requested_rise": requested, "bit_equal": bit_equal,
+           "full_28_layer_state_bytes": full_bytes,
+           "full_save_s_scaled": full_bytes / (disk / save_s),
+           "full_restore_s_scaled": full_bytes / (disk / restore_s)}
+    log(f"[dist] checkpoint save {save_s:.2f}s ({out['save_GB_per_s']:.3f} GB/s), sharded "
+        f"restore {restore_s:.2f}s ({out['restore_GB_per_s']:.3f} GB/s) of {disk / 1e9:.3f} GB; "
+        f"the 28-layer state ({full_bytes / 1e9:.2f} GB) at these rates: save "
+        f"{out['full_save_s_scaled']:.1f}s, restore {out['full_restore_s_scaled']:.1f}s")
+    log(f"[dist] checkpoint: {json.dumps(out)}")
+    require(bit_equal, "sharded restore is not bit-equal to the saved state")
+    require(shard_bytes == per_device * entries,
+            f"shards hold {shard_bytes} bytes, _sharded_arg_bytes x {entries} = "
+            f"{per_device * entries}")
+    # memory_allocated counts the allocator's blocks (each request rounded
+    # up to 512 bytes, a block not worth splitting counted whole); its
+    # requested bytes count the requests themselves.
+    require(requested == shard_bytes,
+            f"the allocator's requested bytes rose {requested}, the shards hold {shard_bytes}")
+    del restored, placed, shards, src, state, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _requested_bytes(torch) -> int:
+    """The bytes the caching allocator's live blocks were requested for."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dist_dryrun() -> dict:
+    """(d) The restated dry run over every cell and both production meshes."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    try:
+        o, _, t = oms_cli(["--all", "--both-meshes", "--out", DRYRUN_DIR.relative_to(HERE)],
+                          "dryrun --all --both-meshes", module="dryrun")
+        recs = [json.loads(f.read_text()) for f in sorted(DRYRUN_DIR.glob("*.json"))]
+    finally:
+        shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+    llama = {r["mesh"]: r for r in recs if r["arch"] == DIST_ARCH and r["shape"] == "train_4k"}
+    out = {"process_s": t, "records": len(recs), **status,
+           "fits": sum(bool(r.get("fits")) for r in recs),
+           "llama_train_4k_bytes_per_device": {m: r["arg_bytes_per_device"]
+                                               for m, r in llama.items()},
+           "device_memory": {r["device_memory_source"]: r["device_memory_bytes"]
+                             for r in recs if r["status"] == "ok"}}
+    log(f"[dist] dryrun: {len(recs)} records ({status['ok']} ok, {status['skipped']} skipped) "
+        f"in {t:.1f}s; {DIST_ARCH} train_4k per-device bytes: "
+        + ", ".join(f"{m} {b / 2**30:.3f} GiB ({b:.0f})"
+                    for m, b in out["llama_train_4k_bytes_per_device"].items()))
+    require(len(recs) == 80 and status == {"ok": 64, "skipped": 16, "error": 0}
+            and set(llama) == {"16x16", "2x16x16"} and o.strip().endswith("0 failures"),
+            f"dryrun: {out}")
+    return out
+
+
+def phase_dist(torch, env) -> dict:
+    """Phase 21: the pipeline (float32, TF32 off), elastic reshard, the
+    sharded checkpoint restore and the dry run. Returns the ``dist`` JSON
+    line's object."""
+    import gc
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pipe = dist_pipeline(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": env["smi"], "pipeline": pipe, "elastic": dist_elastic(torch),
+           "checkpoint": dist_checkpoint(torch), "dryrun": dist_dryrun()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] phase 21 in {out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     if not (HERE / "src" / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
@@ -3464,6 +3737,7 @@ def main() -> int:
             f.unlink(missing_ok=True)
     lm = phase_lm(torch, env)
     train = phase_train(torch, env)
+    dist = phase_dist(torch, env)
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         if k["name"] in ("fused_search", "fused_search_mxu"):
@@ -3472,6 +3746,7 @@ def main() -> int:
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(json.dumps({"lm": lm}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"dist": dist}))
     print(json.dumps({"kernels": kernels}))
     print(env["smi"])
     print(json.dumps({"ok": True, "device": {

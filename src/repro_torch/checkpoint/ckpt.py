@@ -20,7 +20,11 @@ error-feedback residual, which share its structure) is written in the
 reference's layout, its layers stacked per block type
 (``convert.lm_reference_leaves``). Restore matches leaves by order and
 shape, as the reference does, and writes them into the target's tensors
-in place (a stacked leaf unstacked into its layers).
+in place (a stacked leaf unstacked into its layers). With ``shardings`` (a matching
+tree of ``distributed.sharding.NamedSharding`` in the reference's layout)
+restore places every leaf on its mesh instead, as the reference's
+``device_put`` does, and returns the reference-layout tree of ``Sharded``
+leaves.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch.convert import lm_reference_leaves
+from repro_torch.distributed import sharding
 from repro_torch.train.step import TrainState
 
 
@@ -140,12 +145,13 @@ def restore_checkpoint(directory: str, step: int, target_tree, shardings=None, *
     """Restore into ``target_tree`` in place (shapes must match; values are
     cast to the target's dtypes and copied to its devices) and return it.
 
-    ``shardings`` is the reference's restore onto another mesh; the port's
-    LM sharding rules are not ported yet, so it must be None."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint(shardings=...) needs the LM sharding rules "
-            "(distributed/sharding.py), ROADMAP queue 1 item 3")
+    ``shardings``: a tree of ``NamedSharding`` matching the target leaf for
+    leaf in the reference's layout (``distributed.sharding.tree_items``
+    order) — restore onto a mesh, as for an elastic restart. The target
+    then gives only shapes and dtypes (it may live on ``meta``) and is left
+    as it is; the result is the target's reference-layout tree (a
+    ``TrainState`` stays one) of ``Sharded`` leaves, each entry's slice in
+    the target's dtype on the entry's device."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -157,17 +163,28 @@ def restore_checkpoint(directory: str, step: int, target_tree, shardings=None, *
         if list(meta["shape"]) != _shape(tgt):
             raise ValueError(f"shape mismatch {meta['name']}: "
                              f"{meta['shape']} vs {_shape(tgt)}")
-    for meta, (_, tgt) in zip(manifest["leaves"], flat):
+    if shardings is not None:
+        shard_flat = [s for _, s in sharding.tree_items(shardings)]
+        if len(shard_flat) != len(flat):
+            raise ValueError(f"{len(shard_flat)} shardings for {len(flat)} leaves")
+    placed = []
+    for i, (meta, (_, tgt)) in enumerate(zip(manifest["leaves"], flat)):
         fpath = os.path.join(path, meta["file"])
         if verify and _digest(fpath) != meta["sha"]:
             raise IOError(f"checksum mismatch in {fpath}")
         src = _from_stored(np.load(fpath), meta)
-        if isinstance(tgt, list):
+        if shardings is not None:
+            dtype = (tgt[0] if isinstance(tgt, list) else tgt).dtype
+            placed.append(sharding.place(src, shard_flat[i], dtype=dtype))
+        elif isinstance(tgt, list):
             for t, s in zip(tgt, src):
                 t.copy_(s)
         else:
             tgt.copy_(src)
-    return target_tree
+    if shardings is None:
+        return target_tree
+    it = iter(placed)
+    return sharding.tree_map(lambda *_: next(it), target_tree)
 
 
 class AsyncCheckpointer:

@@ -10,10 +10,15 @@ runs the same code on the host), ``--remat`` (checkpoint each block) and
         [--ckpt-dir ckpt] [--compress-grads] [--microbatches 2]
 
 It runs the real training loop (data pipeline, AdamW, checkpointing,
-fault-tolerant resume) on one device. ``--mesh local`` (one controller,
-one device) is the only mesh yet: ``pod`` and ``multipod`` need the LM
-sharding rules, which are not ported. Weights are random, drawn on the
-target device from seed 0.
+fault-tolerant resume). ``--mesh`` builds the mesh as the reference does:
+``local`` over this host's devices of ``--device``'s type (every CUDA
+device, or the one CPU), ``pod`` / ``multipod`` the production (16, 16) /
+(2, 16, 16) mesh (``launch/mesh.py``), which raises, naming the count,
+unless there are exactly 256 / 512 such devices. Training then runs on
+``--device`` (by default the card that is current: the mesh's first), as
+the reference's ``jit`` without in_shardings runs on its default device:
+the state is not sharded. Weights are random, drawn
+on the target device from seed 0.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import reduced_for_smoke
 from repro_torch.configs.registry import get_config
 from repro_torch.data.tokens import synthetic_batches
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import LoopConfig, run_training
@@ -55,11 +61,14 @@ def main(argv=None):
                     help="torch device (default: cuda; raises without a GPU)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh} needs the LM mesh and sharding rules "
-            "(launch/mesh.py, distributed/sharding.py), ROADMAP queue 1 item 3")
     dev = resolve_device(args.device)
+    devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    mesh = {"local": lambda: make_local_mesh(devices=devices),
+            "pod": lambda: make_production_mesh(devices=devices),
+            "multipod": lambda: make_production_mesh(multi_pod=True, devices=devices),
+            }[args.mesh]()
+    print(f"[train] mesh {mesh.shape}; the step runs on {dev}")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced_for_smoke(cfg).scaled(dtype="float32")

@@ -44,7 +44,11 @@ class SimulatedFailure(RuntimeError):
 def run_training(train_step: Callable, state: TrainState,
                  batches: Iterator[Any], cfg: LoopConfig,
                  *, shardings=None, logger=print) -> tuple[TrainState, dict]:
-    """Run (or resume) training. Returns (final state, stats)."""
+    """Run (or resume) training. Returns (final state, stats).
+
+    ``shardings`` passes through to ``restore_checkpoint``: a resumed
+    state then comes back placed on its mesh (``Sharded`` leaves in the
+    reference's layout), for a ``train_step`` that takes it so."""
     start = latest_step(cfg.ckpt_dir)
     if start is not None:
         logger(f"[loop] resuming from checkpoint step {start}")

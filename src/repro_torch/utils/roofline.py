@@ -396,3 +396,14 @@ def lm_train_roofline(cfg, batch: int, seq: int, *, remat: bool = False) -> Roof
                     hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
                     model_flops=3 * model_flops, ops_per_s=PEAK_FLOPS_BF16,
                     route="bf16 tensor cores")
+
+
+def model_flops_train(n_params_active: float, tokens: float) -> float:
+    """6·N·D for a train step (fwd 2ND + bwd 4ND)."""
+    return 6.0 * n_params_active * tokens
+
+
+def model_flops_decode(n_params_active: float, tokens: float,
+                       kv_read_flops: float = 0.0) -> float:
+    """2·N per generated token (+ attention score flops if significant)."""
+    return 2.0 * n_params_active * tokens + kv_read_flops

@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_lm import one_torch_thread  # noqa: E402,F401
 from repro_torch.analysis import contracts as C  # noqa: E402
 from repro_torch.analysis import imports, op_walk, registry  # noqa: E402
 from repro_torch.analysis.registry import ContractDecl  # noqa: E402

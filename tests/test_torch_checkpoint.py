@@ -108,8 +108,19 @@ def test_restore_shape_mismatch_raises(tmp_path):
     with pytest.raises(ValueError):
         restore_checkpoint(str(tmp_path), 2, bad)
     assert torch.equal(t["a"], _tree()["a"])     # nothing written before the check
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        restore_checkpoint(str(tmp_path), 2, t, shardings={"a": None})
+    with pytest.raises(ValueError, match="shape mismatch"):
+        restore_checkpoint(str(tmp_path), 2, bad, shardings=_shardings(bad))
+    with pytest.raises(ValueError, match="1 shardings for 4 leaves"):
+        restore_checkpoint(str(tmp_path), 2, t, shardings={"a": _shardings(t)["a"]})
+
+
+def _shardings(tree):
+    """Every leaf replicated on a one-entry CPU mesh."""
+    from repro_torch.distributed.mesh import make_mesh
+    from repro_torch.distributed.sharding import P, NamedSharding
+    mesh = make_mesh((1,), ("data",), devices=["cpu"])
+    return {k: _shardings(v) if isinstance(v, dict) else NamedSharding(mesh, P())
+            for k, v in tree.items()}
 
 
 def _cfgs(dtype):

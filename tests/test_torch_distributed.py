@@ -26,6 +26,7 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 
+from _torch_lm import one_torch_thread  # noqa: E402,F401
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.blocking import ReferenceDB, shard_reference_db  # noqa: E402
 from repro_torch.core.search import SearchParams, _search_sorted_padded  # noqa: E402

@@ -141,6 +141,47 @@ def test_training_modules_are_covered():
             for f in training} <= mods
 
 
+def test_lm_distribution_and_launch_modules_are_covered():
+    """The static scan and the jax-free import reach the LM distribution
+    (sharding rules, pipeline, elastic remesh), the mesh constructors, the cell
+    specs and the restated dry run."""
+    files = {p.relative_to(PKG).as_posix() for p in _port_files() if PKG in p.parents}
+    lm_dist = {"launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+               "distributed/sharding.py", "distributed/pipeline.py",
+               "distributed/elastic.py"}
+    assert lm_dist <= files
+    mods = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                  prefix="repro_torch.")}
+    assert {"repro_torch." + f.removesuffix(".py").replace("/", ".")
+            for f in lm_dist} <= mods
+    from repro_torch import distributed
+    assert {"param_pspecs", "opt_state_pspecs", "batch_pspecs",
+            "cache_pspecs"} <= set(distributed.__all__)
+
+
+# reference modules with no counterpart file in the port, and why
+NO_COUNTERPART = {
+    "kernels/hamming/hamming.py": "Pallas kernels, ported as CUDA under kernels/hamming/csrc/",
+    "kernels/hdencode/hdencode.py": "Pallas kernel, ported as CUDA under kernels/hdencode/csrc/",
+    "kernels/hamming_mxu/hamming_mxu.py": "Pallas kernels, ported as CUDA under "
+                                          "kernels/hamming_mxu/csrc/",
+    "analysis/jaxpr_walk.py": "walks jaxprs; the port's counterpart is analysis/op_walk.py",
+    "utils/hlo.py": "parses XLA HLO text, which PyTorch does not produce",
+    "utils/hlo_cost.py": "prices XLA HLO; the port's cost model is utils/roofline.py",
+    "utils/unrollctl.py": "controls scan unrolling; the port's loops are Python loops",
+}
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every module of the reference package has a file of the same path
+    in the port, apart from the named ones, each for its reason."""
+    ref = {p.relative_to(ROOT / "src" / "repro").as_posix()
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert ref - port == set(NO_COUNTERPART)
+    assert (PKG / "analysis" / "op_walk.py").exists()
+
+
 def test_launcher_runs_with_jax_absent(tmp_path):
     """``python -m repro_torch.launch.oms`` with jax and the reference
     package made unimportable: ``queries`` runs, ``build`` without

@@ -142,7 +142,7 @@ def test_launcher_refuses_a_host_without_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",
                      "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    with pytest.raises(ValueError, match="needs exactly 256 devices, found 1"):
         launch.main(["--arch", "llama3.2-3b", "--smoke", "--mesh", "pod",
                      "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
