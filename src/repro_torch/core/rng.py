@@ -86,11 +86,59 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
+_CPU_CHUNK = 1 << 16
+
+
+def _threefry_np(k1: int, k2: int, start: int, stop: int) -> np.ndarray:
+    """``threefry2x32`` of the counts [start, stop) (high words 0) under
+    the key (k1, k2), XORed to 32 bits, in numpy uint32 arithmetic, which
+    wraps at 2**32 as the hash does."""
+    ks = (np.uint32(k1), np.uint32(k2), np.uint32(k1 ^ k2 ^ 0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x0 = np.full(stop - start, ks[0], np.uint32)
+        x1 = np.arange(start, stop, dtype=np.uint32) + ks[1]
+        for i in range(1, 6):
+            for r in _ROTATIONS[(i - 1) % 2]:
+                x0 += x1
+                x1 = ((x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))) ^ x0
+            x0 += ks[i % 3]
+            x1 += ks[(i + 1) % 3] + np.uint32(i)
+    return x0 ^ x1
+
+
+def _draw(key: torch.Tensor, shape: tuple[int, ...], fn) -> torch.Tensor:
+    """``fn`` of the 32 random bits (int64) of each element of ``shape``.
+    On the CPU one unbatched key's draws are hashed by :func:`_threefry_np`
+    in flat runs of ``_CPU_CHUNK`` counts, the same counts and so the same
+    bits: torch's int64 ops over a whole 36,000 x 4,096 codebook (1.2 GB
+    an intermediate) took ~10x as long on one thread."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if key.device.type != "cpu" or key.ndim != 1 or n <= _CPU_CHUNK:
+        y1, y2 = _hash_counts(key, shape)
+        return fn(y1 ^ y2)
+    if n >= 1 << 32:
+        raise NotImplementedError("more than 2**32 draws from one key")
+    k1, k2 = (int(k) for k in key)
+    parts = [fn(torch.from_numpy(_threefry_np(k1, k2, start, min(n, start + _CPU_CHUNK))
+                                 .astype(np.int64)))
+             for start in range(0, n, _CPU_CHUNK)]
+    return torch.cat(parts).reshape(shape)
+
+
 def bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
     """32 random bits per element: ``jax.random.bits(key, shape, uint32)``.
     A batched key (..., 2) draws ``shape`` for each of its keys."""
-    y1, y2 = _hash_counts(key, tuple(shape))
-    return y1 ^ y2
+    return _draw(key, shape, lambda b: b)
+
+
+def _to_uniform(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    lo = np.float32(minval)
+    span = np.float32(np.float32(maxval) - lo)
+    mant = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    floats = mant - 1.0
+    out = (floats.to(torch.float64) * float(span) + float(lo)).to(torch.float32)
+    return torch.clamp_min(out, float(lo))
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
@@ -102,18 +150,12 @@ def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
     float32 values is exact in float64, so computing it there and rounding
     once reproduces the fused result bit for bit.
     """
-    lo = np.float32(minval)
-    span = np.float32(np.float32(maxval) - lo)
-    b = bits(key, shape)
-    mant = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    floats = mant - 1.0
-    out = (floats.to(torch.float64) * float(span) + float(lo)).to(torch.float32)
-    return torch.clamp_min(out, float(lo))
+    return _draw(key, shape, lambda b: _to_uniform(b, minval, maxval))
 
 
 def bernoulli(key: torch.Tensor, p: float, shape: tuple[int, ...]) -> torch.Tensor:
     """``jax.random.bernoulli``: ``uniform(key, shape) < p`` (bool)."""
-    return uniform(key, shape) < np.float32(p)
+    return _draw(key, shape, lambda b: _to_uniform(b, 0.0, 1.0) < np.float32(p))
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -24,18 +24,23 @@ Peaks (per card):
     on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md);
   * NVLink 450 GB/s per direction — the datasheet's 900 GB/s
     bidirectional;
+  * InfiniBand 50 GB/s per direction a GPU between nodes — the NVIDIA DGX
+    H100 datasheet's one single-port 400 Gb/s ConnectX-7 a GPU (8 GPUs a
+    node);
   * 132 SMs at a 1,980 MHz maximum SM clock — the datasheet's SXM5 part,
     the default when the caller has not read the card's own clock.
 
 The LM path (``models/``, ``launch/serve.py``) launches none of the
-kernels above; ``lm_step_roofline`` counts one prefill or decode step of
-the published model the same way.
+kernels above; ``lm_step_roofline`` and ``lm_train_roofline`` count one
+prefill, decode or training step of every family the same way.
 
 Terms (seconds; ``flops`` here are the integer or tensor-core operations
 of the route that does them, at ``ops_per_s``):
     compute    = flops      / (chips * ops_per_s)
     memory     = hbm_bytes  / (chips * HBM_BYTES_PER_S)
-    collective = coll_bytes / (chips * NVLINK_BYTES_PER_S)
+    collective = coll_bytes / (chips * coll_bytes_per_s)
+(``coll_bytes_per_s``: NVLink unless the caller reckons another rate, as
+the dry run does for axes that cross nodes.)
 """
 from __future__ import annotations
 
@@ -51,6 +56,8 @@ POPC_PER_CLK_SM = 16
 BMMA_PER_CLK_SM = 0.589
 BMMA_PAIR_BITS = 16 * 8 * 256
 NVLINK_BYTES_PER_S = 450e9
+IB_BYTES_PER_S = 50e9
+GPUS_PER_NODE = 8
 H100_SMS = 132
 H100_SM_CLOCK_HZ = 1.98e9
 
@@ -64,6 +71,7 @@ class Roofline:
     model_flops: float = 0.0     # analytic "useful" ops (2 * D per pair)
     ops_per_s: float = INT8_TENSOR_OPS_PER_S   # the route's peak rate
     route: str = ""              # which units the ops run on
+    coll_bytes_per_s: float = NVLINK_BYTES_PER_S   # the collectives' rate
 
     @property
     def t_compute(self) -> float:
@@ -75,7 +83,7 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        return self.coll_bytes / (self.chips * NVLINK_BYTES_PER_S)
+        return self.coll_bytes / (self.chips * self.coll_bytes_per_s)
 
     @property
     def bottleneck(self) -> str:
@@ -306,19 +314,75 @@ def lm_param_counts(cfg, *, max_dec_seq: int = 4096) -> dict:
     return c
 
 
-def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline:
-    """One step of the published decoder (real heads) of dense attention
-    blocks, with dense or MoE FFNs, on ``batch`` sequences: ``new_tokens``
+def _attn_pairs(new_tokens: int, context: int, window: int = 0) -> int:
+    """(query, key) pairs one sequence's causal attention scores: the new
+    positions p = context - new_tokens + 1 .. context (1-based) each see p
+    keys, or min(p, window) under a sliding window."""
+    a, b = context - new_tokens + 1, context
+    if not window or b <= window:
+        return (a + b) * new_tokens // 2
+    if a > window:
+        return window * new_tokens
+    return (a + window) * (window - a + 1) // 2 + window * (b - window)
+
+
+def _scan_ops(seq: int) -> int:
+    """Operations of ``rglru.linear_scan`` on one channel of one sequence
+    of ``seq`` steps: at each doubling d < seq, a multiply-add on the
+    seq - d folded positions, and seq - d products of ``a`` except at the
+    last step."""
+    ops, d = 0, 1
+    while d < seq:
+        ops += 2 * (seq - d) + ((seq - d) if 2 * d < seq else 0)
+        d *= 2
+    return ops
+
+
+def _f32_params(cfg) -> int:
+    """Parameters a bf16 model keeps in float32 (the MoE router, the RG-LRU
+    gate biases and Λ, the mLSTM gates, the sLSTM's input and recurrent
+    weights)."""
+    D, nh = cfg.d_model, cfg.n_heads
+    n = cfg.n_layers * D * cfg.moe.n_experts if cfg.moe is not None else 0
+    for btype in (_block_types(cfg) if cfg.family != "audio" else ()):
+        if btype == "rec":
+            n += 3 * (cfg.lru_width or D)
+        elif btype == "mlstm":
+            n += 2 * 2 * D * nh + 2 * nh
+        elif btype == "slstm":
+            n += 4 * D * D + 4 * D + 4 * D * (D // nh)
+    return n
+
+
+@dataclasses.dataclass
+class _Forward:
+    """One forward's work: ``flops`` (the port's products and the named
+    elementwise terms), ``model_flops``, HBM ``nbytes``, the lm_head's
+    ``head`` flops, and ``outside``: flops that run outside the remat
+    checkpoints besides the head (Whisper's cross K/V)."""
+    flops: float
+    model_flops: float
+    nbytes: float
+    head: float
+    outside: float = 0.0
+
+
+def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int, *,
+                     enc_seq: int | None = None, chunk: int = 1024) -> Roofline:
+    """One step of the model on ``batch`` sequences: ``new_tokens``
     positions each, the last at position ``context - 1`` (a prefill of S:
     new_tokens = context = S; a decode step at context L: new_tokens = 1),
     the lm_head on the last position only, as ``Model.prefill`` and
-    ``decode_step`` apply it.
+    ``decode_step`` apply it; ``enc_seq``: Whisper's encoder frames
+    (default ``encdec.encoder_seq``); ``chunk``: the ``Model``'s chunk,
+    which sets the mLSTM's (min(chunk, 256), as ``apply_block`` passes it).
 
-    Operations (bf16 tensor cores): 2 per weight per token through the
-    blocks' attention projections, dense FFN, shared experts and router;
-    4 * hd per (query, key) pair per head for QK^T and PV under the causal
-    mask; 2 * D * V per logit row. A MoE layer's routed experts run as
-    formulated: over all E capacity buffers of C = ceil(T K / E * cf)
+    Dense and MoE decoders of attention blocks (the published model, real
+    heads). Operations (bf16 tensor cores): 2 per weight per token through
+    the blocks' attention projections, dense FFN, shared experts and
+    router; 4 * hd per (query, key) pair per head for QK^T and PV under the
+    causal mask; 2 * D * V per logit row. A MoE layer's routed experts run
+    as formulated: over all E capacity buffers of C = ceil(T K / E * cf)
     slots each, whatever the routing, so 2 * E * C * 3 * D * F_expert a
     layer (at 8 x 512 with olmoe's E 64, K 8, cf 1.25: C = 640, 1.25x the
     T * K routed copies; at decode B = 8: C = 2). ``model_flops`` counts
@@ -327,19 +391,93 @@ def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline
     once, every expert's included (the expert products read all E weight
     stacks; a MoE router is float32), a tied embedding once, for the
     lm_head (untied, only the prompt's rows of it), the cached K/V of the earlier positions read,
-    the new K/V written, the tokens read and the logits written."""
-    if cfg.family == "audio" or cfg.mla is not None or cfg.block_pattern:
-        raise ValueError(f"{cfg.name}: lm_step_roofline counts decoders of "
-                         "attention blocks only")
+    the new K/V written, the tokens read and the logits written.
+
+    The other families are counted as the port formulates them (see
+    :func:`_forward`): MLA (``layers.mla_apply``), the RecurrentGemma
+    pattern (``rglru.rec_block_apply``, windowed attention), xLSTM
+    (``xlstm.mlstm_block_apply`` / ``slstm_block_apply``) and Whisper
+    (``whisper.encode`` / ``decode``)."""
+    f = _forward(cfg, batch, new_tokens, context, enc_seq=enc_seq, chunk=chunk,
+                 cache=True)
+    return Roofline(flops=f.flops, hbm_bytes=float(f.nbytes), coll_bytes=0.0, chips=1,
+                    model_flops=f.model_flops, ops_per_s=PEAK_FLOPS_BF16,
+                    route="bf16 tensor cores")
+
+
+def _forward(cfg, batch: int, new_tokens: int, context: int, *, enc_seq, chunk,
+             cache: bool) -> _Forward:
+    """A forward's work; ``cache``: a serving step that reads and writes a
+    cache (``Model.prefill`` / ``decode_step``), else a training forward
+    (no cache, nothing written but the output).
+
+    * **MLA** (deepseek-v2-lite): per token the q (D x H x (nope + rope)),
+      kv-down (D x (r + rope)), o, router and shared-expert products; the
+      kv-up (r x H x (nope + v)) over the cached latent rows the step
+      attends to (batch x context: the port up-projects the cache, where
+      the published model may absorb w_uk into q); per pair 2 * H *
+      (nope + rope) for QK^T and 2 * H * v for PV; the routed experts as
+      above. Bytes as above with the latent cache's r + rope a layer.
+    * **RecurrentGemma** (rec, rec, attn): the rec block's w_in_main,
+      w_in_gate, w_out and the RG-LRU gates w_a, w_x (float32 GEMMs in the
+      port, priced at the bf16 rate), 2 * conv_width ops a channel a token
+      for the depthwise causal conv, and the scan as the port runs it: a
+      log-depth scan of ~3 S log2 S operations a channel (``_scan_ops``)
+      where the published recurrence takes 2 S (``model_flops``), a decode
+      step 2 a channel. The attention blocks' pairs are bounded by
+      ``local_window``. Every block's SwiGLU FFN. Bytes: the recurrent
+      state (float32 h) and the conv state read and written, the windowed
+      K/V of the earlier positions read and the new rows written.
+    * **xLSTM** (7 mLSTM : 1 sLSTM): the mLSTM's w_up, w_q, w_k, w_v, the
+      float32 gates w_i, w_f and w_down; its prefill's quadratic term as
+      ``mlstm_parallel`` forms it: each q chunk of c rows scores against
+      every key of the sequence and is masked after (4 * S * dh a row a
+      head for the inter-chunk QK^T and PV) plus the chunk's own c x c
+      block (4 * c * dh), where the published parallel form takes the
+      causal pairs only (4 * dh a pair: ``model_flops``); a prefill into a
+      cache builds the final (C, n, m) in closed form (2 * S * dh^2 a
+      head); a decode step reads C q and n q (2 * dh^2 + 2 * dh a head; the
+      rank-1 update of C is elementwise, not counted). The sLSTM's float32
+      input product w_zifo, its per-step block-diagonal recurrent products
+      (2 * 4 * nh * dh^2 a token, a Python loop over time in the port) and
+      its 4/3 FFN. Both blocks' conv as above. Bytes: the mLSTM's
+      (nh, dh, dh) C, n, m and conv state, the sLSTM's (c, n, h, m) read
+      (decode, and the sLSTM's prefill) and written.
+    * **Whisper**: the encoder over ``enc_seq`` frames (bidirectional:
+      enc_seq^2 pairs) and the cross K/V of every decoder layer (2 * D *
+      KV * hd a frame each) where ``Model.prefill`` runs them (once); the
+      decoder's self-attention (causal pairs), cross-attention (q and o
+      products, new_tokens * enc_seq pairs over the cached K/V) and MLP;
+      the tied head. Bytes: a prefill reads the encoder's and decoder's
+      weights and the frames and writes the self and cross K/V; a decode
+      step reads the decoder's weights, the cached self K/V and the cross
+      K/V. Biases, norms, softmax and gates are not counted, as for the
+      dense decoders.
+
+    Pairs are counted under the mask (causal, windowed or valid), where
+    ``chunked_attention`` scores whole rectangles of q chunks against the
+    keys and masks after: that masked work is not counted."""
+    if cfg.family == "audio":
+        return _whisper_forward(cfg, batch, new_tokens, context,
+                                enc_seq=enc_seq or cfg.encdec.encoder_seq, cache=cache)
+    if cfg.block_pattern:
+        return _pattern_forward(cfg, batch, new_tokens, context, chunk=chunk, cache=cache)
     c = lm_param_counts(cfg)
     bpe = _DTYPE_BYTES[cfg.dtype]
     D, V, hd = cfg.d_model, cfg.vocab_size, cfg.resolved_head_dim
     L, H, KV = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads
     tokens = batch * new_tokens
-    pairs = batch * (new_tokens * context - new_tokens * (new_tokens - 1) // 2)
+    pairs = batch * _attn_pairs(new_tokens, context)
     norms = 2 * _norm_params(cfg)
     bias = cfg.d_ff + D if cfg.ffn == "mlp_gelu" else 0
     matmul_weights = c["layer"] - norms - bias
+    pair_ops, kv_up, kv_row = 4 * H * hd, 0, L * 2 * KV * hd
+    if cfg.mla is not None:
+        m = cfg.mla
+        kv_up = m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+        matmul_weights -= kv_up
+        pair_ops = 2 * H * (m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim)
+        kv_row = L * (m.kv_lora_rank + m.qk_rope_head_dim)
     expert_flops = routed_flops = 0.0
     if cfg.moe is not None:
         m = cfg.moe
@@ -348,51 +486,172 @@ def lm_step_roofline(cfg, batch: int, new_tokens: int, context: int) -> Roofline
         matmul_weights -= m.n_experts * c["expert"]
         expert_flops = 2.0 * L * slots * c["expert"]
         routed_flops = 2.0 * L * tokens * m.top_k * c["expert"]
-    rest = 2.0 * tokens * L * matmul_weights + 4.0 * L * H * hd * pairs + 2.0 * D * V * batch
-    flops = rest + expert_flops
+    rest = (2.0 * tokens * L * matmul_weights + 2.0 * batch * context * L * kv_up
+            + pair_ops * L * pairs + 2.0 * D * V * batch)
     head = V * D
     gathered = 0 if cfg.tie_embeddings else min(tokens, V) * D
-    kv_row = L * 2 * KV * hd
     router_f32 = L * D * cfg.moe.n_experts * (4 - bpe) if cfg.moe is not None else 0
     nbytes = bpe * (L * c["layer"] + c["final_norm"] + head + gathered
                     + batch * (context - new_tokens) * kv_row + tokens * kv_row
                     + batch * V) + router_f32 + 4 * tokens
-    return Roofline(flops=flops, hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
-                    model_flops=rest + routed_flops,
-                    ops_per_s=PEAK_FLOPS_BF16, route="bf16 tensor cores")
+    return _Forward(flops=rest + expert_flops, model_flops=rest + routed_flops,
+                    nbytes=nbytes, head=2.0 * D * V * batch)
 
 
-def lm_train_roofline(cfg, batch: int, seq: int, *, remat: bool = False) -> Roofline:
-    """One training step of the published decoder (real heads) of attention
-    blocks on ``batch`` sequences of ``seq`` tokens, restated from
-    ``lm_step_roofline``'s prefill of ``seq``.
+def _decoding(cfg, new_tokens: int, context: int) -> bool:
+    """A step that continues a cached sequence; the recurrent blocks decode
+    one token at a time."""
+    if context > new_tokens and new_tokens != 1:
+        raise ValueError(f"{cfg.name}: a recurrent decode step takes one new "
+                         f"token, not {new_tokens}")
+    return context > new_tokens
 
-    Operations: the forward as ``lm_step_roofline`` counts it, the lm_head
-    over every position (the loss reads all logits); the backward pass
-    twice the forward's; with ``remat`` the blocks' forward once more (the
-    embedding and the head are outside the checkpoints). ``model_flops``:
-    three forwards of the active parameters (the routed copies for MoE), no
-    recompute. Bytes: the forward reads every weight, the backward reads
-    them again and writes their gradients (in the weights' dtype), ``remat``
-    reads the blocks' weights once more; AdamW reads the params, the
-    gradients and the float32 ``m`` / ``v`` and writes the params, ``m``
-    and ``v``; the tokens and targets (int32) and the mask (float32) are
-    read. Activations are not counted: a bound, not an estimate."""
-    fwd = lm_step_roofline(cfg, batch, seq, seq)
+
+def _pattern_block(cfg, btype: str, batch: int, n: int, context: int, *, chunk,
+                   cache: bool) -> tuple[float, float, float]:
+    """One layer of a patterned model (RecurrentGemma, xLSTM): (flops,
+    model_flops, bytes of its state or cache) for ``batch`` x ``n`` new
+    tokens; see :func:`_forward`."""
+    D, K, nh = cfg.d_model, cfg.conv_width, cfg.n_heads
+    bpe = _DTYPE_BYTES[cfg.dtype]
+    tokens = batch * n
+    decode = _decoding(cfg, n, context)
+    if btype == "rec":
+        W = cfg.lru_width or D
+        mm = 3 * D * W + 2 * W * W + _ffn_params(D, cfg.d_ff, cfg.ffn)
+        base = 2.0 * tokens * mm + 2.0 * K * W * tokens
+        if decode:
+            scan = model = 2.0 * W * batch
+        else:
+            scan = float(_scan_ops(n) * W * batch + (2 * W * batch if cache else 0))
+            model = 2.0 * n * W * batch
+        state = (4 * W + (K - 1) * W * bpe) * batch
+        moved = 2 * state if decode else ((state + 4 * W * batch) if cache else 0)
+        return base + scan, base + model, moved
+    if btype == "attn":
+        H, KV, hd, w = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.local_window
+        mm = _attn_params(cfg) + _ffn_params(D, cfg.d_ff, cfg.ffn)
+        f = 2.0 * tokens * mm + 4.0 * H * hd * batch * _attn_pairs(n, context, w)
+        row = 2 * KV * hd * bpe
+        read = max(min(context, w or context) - n, 0)
+        moved = batch * (read + min(n, w or n)) * row if cache else 0
+        return f, f, moved
+    if btype == "mlstm":
+        d_in = 2 * D
+        dh = d_in // nh
+        mm = 2 * D * d_in + 3 * d_in * d_in + 2 * d_in * nh + d_in * D
+        base = 2.0 * tokens * mm + 2.0 * K * d_in * tokens
+        if decode:
+            quad = model = 2.0 * batch * nh * (dh * dh + dh)
+        else:
+            c = min(chunk, 256)
+            sq = (n // c) * c * c + (n % c) ** 2
+            quad = 4.0 * batch * nh * dh * (n * n + sq)
+            model = 4.0 * batch * nh * dh * _attn_pairs(n, n)
+            if cache:
+                quad += 2.0 * batch * nh * n * dh * dh
+                model += 2.0 * batch * nh * n * dh * dh
+        state = (nh * dh * dh * 4 + nh * dh * 4 + nh * 4 + (K - 1) * d_in * bpe) * batch
+        moved = 2 * state if decode else (state if cache else 0)
+        return base + quad, base + model, moved
+    if btype == "slstm":
+        dh, d_ff = D // nh, int(4.0 / 3.0 * D) // 64 * 64 or D
+        f = 2.0 * tokens * (4 * D * D + 3 * D * d_ff) + 8.0 * nh * dh * dh * tokens
+        moved = 2 * 4 * D * 4 * batch if cache else 0
+        return f, f, moved
+    raise ValueError(btype)
+
+
+def _pattern_forward(cfg, batch: int, new_tokens: int, context: int, *, chunk,
+                     cache: bool) -> _Forward:
     c = lm_param_counts(cfg)
+    bpe = _DTYPE_BYTES[cfg.dtype]
+    D, V = cfg.d_model, cfg.vocab_size
+    tokens = batch * new_tokens
+    flops = model = moved = 0.0
+    types = _block_types(cfg)
+    for btype in dict.fromkeys(types):
+        f, m, b = _pattern_block(cfg, btype, batch, new_tokens, context, chunk=chunk,
+                                 cache=cache)
+        nl = types.count(btype)
+        flops, model, moved = flops + nl * f, model + nl * m, moved + nl * b
+    head = 2.0 * D * V * batch
+    gathered = 0 if cfg.tie_embeddings else min(tokens, V) * D
+    nbytes = (bpe * (sum(c["layers"][t] for t in types) + c["final_norm"] + V * D
+                     + gathered + batch * V)
+              + (4 - bpe) * _f32_params(cfg) + moved + 4 * tokens)
+    return _Forward(flops=flops + head, model_flops=model + head, nbytes=nbytes, head=head)
+
+
+def _whisper_forward(cfg, batch: int, new_tokens: int, context: int, *, enc_seq: int,
+                     cache: bool) -> _Forward:
+    c = lm_param_counts(cfg)
+    bpe = _DTYPE_BYTES[cfg.dtype]
+    D, V, F = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Le, Ld = cfg.encdec.n_encoder_layers, cfg.n_layers
+    tokens = batch * new_tokens
+    decode = context > new_tokens
+    proj = 2 * D * H * hd + 2 * D * KV * hd
+    enc = cross_kv = 0.0
+    if not decode:
+        frames = batch * enc_seq
+        enc = Le * (2.0 * frames * (proj + 2 * D * F) + 4.0 * H * hd * batch * enc_seq ** 2)
+        cross_kv = Ld * 2.0 * frames * 2 * D * KV * hd
+    dec = Ld * (2.0 * tokens * (proj + 2 * D * H * hd + 2 * D * F)
+                + 4.0 * H * hd * batch * (_attn_pairs(new_tokens, context)
+                                          + new_tokens * enc_seq))
+    head = 2.0 * D * V * batch
+    flops = enc + cross_kv + dec + head
+    kv_row, cross = Ld * 2 * KV * hd, Ld * batch * enc_seq * 2 * KV * hd
+    if decode:
+        weights = Ld * c["dec_layer"] + c["final_norm"]
+        moved = batch * (context - new_tokens) * kv_row + cross
+    else:
+        weights = Le * c["enc_layer"] + Ld * c["dec_layer"] + 2 * c["final_norm"]
+        moved = batch * enc_seq * D + (cross if cache else 0)
+    if cache:
+        moved += tokens * kv_row
+    nbytes = bpe * (weights + V * D + new_tokens * D + moved + batch * V) + 4 * tokens
+    return _Forward(flops=flops, model_flops=flops, nbytes=nbytes, head=head,
+                    outside=cross_kv)
+
+
+def lm_train_roofline(cfg, batch: int, seq: int, *, remat: bool = False,
+                      chunk: int = 1024) -> Roofline:
+    """One training step on ``batch`` sequences of ``seq`` tokens (Whisper:
+    ``seq`` frames and ``seq`` tokens, as the train cells feed it), from
+    the training forward of :func:`_forward` (no cache: the mLSTM builds no
+    final state).
+
+    Operations: the forward, the lm_head over every position (the loss
+    reads all logits); the backward pass twice the forward's; with
+    ``remat`` the blocks' forward once more (the embedding, the head and
+    Whisper's cross K/V are outside the checkpoints). ``model_flops``:
+    three forwards of the useful work (the routed copies for MoE, the
+    causal pairs of the mLSTM, the sequential RG-LRU recurrence), no
+    recompute. Bytes: the forward reads every weight, the backward reads
+    them again and writes their gradients (in the weights' dtype: the
+    float32 leaves at 4 bytes), ``remat`` reads the blocks' weights once
+    more; AdamW reads the params, the gradients and the float32 ``m`` /
+    ``v`` and writes the params, ``m`` and ``v``; the tokens and targets
+    (int32) and the mask (float32) are read. Activations are not counted:
+    a bound, not an estimate."""
+    fwd = _forward(cfg, batch, seq, seq, enc_seq=seq, chunk=chunk, cache=False)
+    c = lm_param_counts(cfg, max_dec_seq=seq)
     bpe = _DTYPE_BYTES[cfg.dtype]
     D, V = cfg.d_model, cfg.vocab_size
     tokens = batch * seq
     head = 2.0 * D * V * tokens
-    flops = fwd.flops + head - 2.0 * D * V * batch       # the head on every row
-    model_flops = fwd.model_flops + head - 2.0 * D * V * batch
-    router_f32 = (cfg.n_layers * D * cfg.moe.n_experts * (4 - bpe)
-                  if cfg.moe is not None else 0)
-    weights = bpe * c["total"] + router_f32
+    flops = fwd.flops + head - fwd.head                 # the head on every row
+    model_flops = fwd.model_flops + head - fwd.head
+    weights = bpe * c["total"] + (4 - bpe) * _f32_params(cfg)
     nbytes = 6 * weights + 16 * c["total"] + 12 * tokens
     if remat:
-        nbytes += weights - bpe * (c["embed"] + c["unembed"] + c["final_norm"])
-    return Roofline(flops=3 * flops + (flops - head if remat else 0.0),
+        outside = (c["embed"] + c["pos_dec"] + 2 * c["final_norm"] if cfg.family == "audio"
+                   else c["embed"] + c["unembed"] + c["final_norm"])
+        nbytes += weights - bpe * outside
+    return Roofline(flops=3 * flops + (flops - head - fwd.outside if remat else 0.0),
                     hbm_bytes=float(nbytes), coll_bytes=0.0, chips=1,
                     model_flops=3 * model_flops, ops_per_s=PEAK_FLOPS_BF16,
                     route="bf16 tensor cores")

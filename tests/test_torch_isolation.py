@@ -1,5 +1,6 @@
-"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
-imports jax or the reference package, every module imports with jax
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py,
+nor the port's examples ``examples/*_torch.py``) imports jax or the
+reference package, every module imports with jax
 absent, and entry points refuse to fall back to the CPU silently."""
 import pytest
 
@@ -25,12 +26,18 @@ FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+EXAMPLES = ("quickstart_torch.py", "oms_search_e2e_torch.py", "serve_lm_torch.py",
+            "train_lm_torch.py")
+
+
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
     assert (ROOT / "chip_smoke.py").exists()
+    assert {p.name for p in _port_files() if p.parent.name == "examples"} == set(EXAMPLES)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in _port_files() for m in FORBIDDEN.finditer(p.read_text())]
     assert hits == []

@@ -378,9 +378,10 @@ def test_bf16_params_carry_across_with_their_dtypes(name):
 @pytest.mark.parametrize("name", ref_list_archs())
 def test_roofline_counts_the_published_model(name):
     """``lm_param_counts`` equals the parameters ``init_params`` makes with
-    the head padding off, for every arch; ``lm_step_roofline`` counts a
-    prefill and a decode step by hand for the attention-block decoders
-    (dense and MoE) and refuses the others."""
+    the head padding off, for every arch; ``lm_step_roofline``'s prefill of
+    8 x 4 and decode step at context 100 equal a count by hand for every
+    arch: the attention-block decoders (dense and MoE) below, MLA, the
+    RecurrentGemma pattern, xLSTM and Whisper in ``_hand_count``."""
     from repro_torch.utils import roofline as R
     cfg = get_config(name)
     specs = build_model(cfg.scaled(tp_pad_heads_to=0)).param_specs()
@@ -394,8 +395,12 @@ def test_roofline_counts_the_published_model(name):
         for blk, btype in zip(specs.blocks, PT.block_layout(cfg)):
             assert counts["layers"][btype] == sum(p.numel() for p in blk.parameters())
     if cfg.family == "audio" or cfg.mla is not None or cfg.block_pattern:
-        with pytest.raises(ValueError, match="attention blocks only"):
-            R.lm_step_roofline(cfg, 8, 1, 100)
+        pre, dec = R.lm_step_roofline(cfg, 8, 4, 4), R.lm_step_roofline(cfg, 8, 1, 100)
+        want = _hand_count(cfg, counts)
+        for step, r in (("prefill", pre), ("decode", dec)):
+            assert (r.flops, r.model_flops, r.hbm_bytes) == want[step], (name, step)
+        assert dec.bound_by == "bytes"
+        assert R.lm_step_roofline(cfg, 8, 512, 512, enc_seq=512).bound_by == "operations"
         return
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -428,3 +433,98 @@ def test_roofline_counts_the_published_model(name):
                                    + 8 * 99 * kv_row + 8 * kv_row + 8 * V) + router_f32 + 4 * 8
     assert dec.bound_by == "bytes"
     assert R.lm_step_roofline(cfg, 8, 512, 512).bound_by == "operations"
+
+
+def _hand_count(cfg, counts) -> dict:
+    """(flops, model_flops, hbm_bytes) of a prefill of 8 sequences of 4 and
+    a decode step of 8 at context 100 (99 cached), bf16, for the four
+    families that are not plain attention decoders, from the published
+    widths. Prefill pairs: 8 x (1 + 2 + 3 + 4) = 80; decode: 8 x 100."""
+    D, V, L, K = cfg.d_model, cfg.vocab_size, cfg.n_layers, cfg.conv_width
+    head = 2 * D * V * 8                         # the last position's logits
+    out = {}
+    if cfg.mla is not None:                      # deepseek-v2-lite-16b
+        m, e = cfg.mla, cfg.moe
+        H, qk = cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim
+        assert (D, H, qk, m.v_head_dim, m.kv_lora_rank, e.n_experts, e.top_k,
+                e.d_ff_expert, e.n_shared) == (2048, 16, 192, 128, 512, 64, 6, 1408, 2)
+        per_tok = (D * H * qk + D * (512 + 64) + H * 128 * D + D * 64     # q, kv-down, o, router
+                   + 3 * D * 1408 * 2)                                  # the shared experts
+        kv_up = 512 * H * (128 + 128)            # over the cached latent rows
+        pair = 2 * H * (qk + 128)
+        expert = 3 * D * 1408
+        for step, T, ctx, pairs, C in (("prefill", 32, 4, 80, 4), ("decode", 8, 100, 800, 1)):
+            # C = ceil(T * 6 / 64 * 1.25): 32 -> 4 slots an expert, 8 -> 1
+            base = 2 * T * L * per_tok + 2 * 8 * ctx * L * kv_up + pair * L * pairs + head
+            kv_row = L * (512 + 64)
+            nbytes = (2 * (L * counts["layer"] + counts["final_norm"] + V * D + T * D
+                           + 8 * (ctx - T // 8) * kv_row + T * kv_row + 8 * V)
+                      + 2 * L * D * 64 + 4 * T)
+            out[step] = (base + 2 * L * 64 * C * expert, base + 2 * L * T * 6 * expert, nbytes)
+        return out
+    if cfg.family == "audio":                    # whisper-base, 1,500 frames
+        H, hd, F, S = cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff, 1500
+        assert (D, H, hd, F, cfg.encdec.n_encoder_layers, L) == (512, 8, 64, 2048, 6, 6)
+        proj, mlp = 4 * D * D, 2 * D * F         # q, k, v, o; the MLP
+        enc = 6 * (2 * 8 * S * (proj + mlp) + 4 * H * hd * 8 * S * S)
+        cross_kv = 6 * 2 * 8 * S * 2 * D * D
+        kv_row, cross = 6 * 2 * D, 6 * 8 * S * 2 * D
+        ln = 2 * D
+        for step, T, pairs in (("prefill", 32, 80), ("decode", 8, 800)):
+            dec = 6 * (2 * T * (proj + 2 * D * D + mlp) + 4 * H * hd * (pairs + T * S))
+            if step == "prefill":
+                flops = enc + cross_kv + dec + head
+                nbytes = 2 * (6 * counts["enc_layer"] + 6 * counts["dec_layer"] + 2 * ln
+                              + V * D + 4 * D + 8 * S * D + cross + T * kv_row + 8 * V) + 4 * T
+            else:
+                flops = dec + head
+                nbytes = 2 * (6 * counts["dec_layer"] + ln + V * D + D + 8 * 99 * kv_row
+                              + cross + T * kv_row + 8 * V) + 4 * T
+            out[step] = (flops, flops, nbytes)
+        return out
+    if cfg.family == "hybrid":                   # recurrentgemma-9b: 26 rec + 12 attn
+        W, H, KV = cfg.lru_width, cfg.n_heads, cfg.n_kv_heads
+        hd, F = cfg.resolved_head_dim, cfg.d_ff
+        assert (D, W, H, KV, hd, F, K, cfg.local_window) == (4096, 4096, 16, 1, 256, 12288, 4, 2048)
+        rec_mm = 3 * D * W + 2 * W * W + 3 * D * F
+        attn_mm = 2 * D * H * hd + 2 * D * KV * hd + 3 * D * F
+        layers = 26 * counts["layers"]["rec"] + 12 * counts["layers"]["attn"]
+        state = (4 * W + 3 * W * 2) * 8          # float32 h and the bf16 conv state
+        row = 2 * KV * hd * 2
+        for step, T, pairs in (("prefill", 32, 80), ("decode", 8, 800)):
+            rec = 2 * T * rec_mm + 2 * K * W * T
+            # the log-depth scan of 4 steps: 9 + 4 ops a channel, the cached h
+            # folded in (2); the recurrence 2 a step; a decode step 2
+            scan, model = (((13 + 2) * W * 8, 2 * 4 * W * 8) if step == "prefill"
+                           else (2 * W * 8, 2 * W * 8))
+            attn = 2 * T * attn_mm + 4 * H * hd * pairs
+            moved = (26 * (state + 4 * W * 8) + 12 * 8 * 4 * row if step == "prefill"
+                     else 26 * 2 * state + 12 * 8 * 100 * row)
+            nbytes = (2 * (layers + counts["final_norm"] + V * D + T * D + 8 * V)
+                      + 2 * 26 * 3 * W + moved + 4 * T)
+            out[step] = (26 * (rec + scan) + 12 * attn + head,
+                         26 * (rec + model) + 12 * attn + head, nbytes)
+        return out
+    # xlstm-1.3b: 42 mLSTM + 6 sLSTM blocks, no FFN outside the sLSTM
+    nh, d_in, dh, dhs, F = cfg.n_heads, 2 * D, 1024, 512, 2688
+    assert (D, nh, d_in // nh, D // nh, int(4 / 3 * D) // 64 * 64) == (2048, 4, dh, dhs, F)
+    m_mm = 2 * D * d_in + 3 * d_in * d_in + 2 * d_in * nh + d_in * D
+    s_tok = 2 * (4 * D * D + 3 * D * F) + 8 * nh * dhs * dhs
+    layers = 42 * counts["layers"]["mlstm"] + 6 * counts["layers"]["slstm"]
+    f32 = 42 * (2 * d_in * nh + 2 * nh) + 6 * (4 * D * D + 4 * D + 4 * nh * dhs * dhs)
+    m_state = (nh * dh * dh * 4 + nh * dh * 4 + nh * 4 + 3 * d_in * 2) * 8
+    s_state = 2 * 4 * D * 4 * 8                  # (c, n, h, m) read and written
+    for step, T in (("prefill", 32), ("decode", 8)):
+        base = 2 * T * m_mm + 2 * K * d_in * T
+        if step == "prefill":                    # one chunk of 4: 4 x 4 keys + its 4 x 4 block
+            build = 2 * 8 * nh * 4 * dh * dh     # the final C in closed form
+            quad, model = 4 * 8 * nh * dh * (16 + 16) + build, 4 * 8 * nh * dh * 10 + build
+            moved = 42 * m_state + 6 * s_state
+        else:
+            quad = model = 2 * 8 * nh * (dh * dh + dh)
+            moved = 42 * 2 * m_state + 6 * s_state
+        nbytes = (2 * (layers + counts["final_norm"] + V * D + T * D + 8 * V) + 2 * f32
+                  + moved + 4 * T)
+        out[step] = (42 * (base + quad) + 6 * T * s_tok + head,
+                     42 * (base + model) + 6 * T * s_tok + head, nbytes)
+    return out

@@ -58,6 +58,24 @@ def test_bernoulli():
     assert (rng.bernoulli(rng.PRNGKey(11), 0.8, (300,)).numpy() == want).all()
 
 
+@pytest.mark.parametrize("chunk", [1000, 1 << 20])
+def test_cpu_draws_in_chunks_are_the_whole_draw(monkeypatch, chunk):
+    """On the CPU one key's draws are hashed in flat runs of ``_CPU_CHUNK``
+    counts: at a run of 1,000 (a ragged last run of 37 x 101 = 3,737) and
+    at the default past one run (1,100 x 1,024 draws), bits, uniform and
+    bernoulli equal jax.random's."""
+    monkeypatch.setattr(rng, "_CPU_CHUNK", chunk)
+    shape = (37, 101) if chunk == 1000 else (1100, 1024)
+    k = jax.random.fold_in(jax.random.PRNGKey(9), 2)
+    kt = rng.fold_in(rng.PRNGKey(9), 2)
+    assert (_np(jax.random.bits(k, shape, dtype=jnp.uint32)) == rng.bits(kt, shape).numpy()).all()
+    want = np.asarray(jax.random.uniform(k, shape, minval=200.0, maxval=2000.0))
+    assert (rng.uniform(kt, shape, 200.0, 2000.0).numpy() == want).all()
+    want = np.asarray(jax.random.bernoulli(k, 0.5, shape))
+    got = rng.bernoulli(kt, 0.5, shape)
+    assert got.shape == shape and (got.numpy() == want).all()
+
+
 @pytest.mark.parametrize("n", [1, 7, 256, 4096])
 def test_permutation(n):
     k = jax.random.PRNGKey(n)

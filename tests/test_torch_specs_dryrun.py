@@ -3,8 +3,10 @@
 (32 on each production mesh) the parameter counts, tokens per step, global
 argument bytes, per-device argument bytes (the reference's
 ``dryrun._sharded_arg_bytes`` on its ``make_cell`` args) and
-``model_flops`` are equal; the dry run's CLI writes 80 records, 64 ``ok``
-and 16 ``skipped``; ``make_step_fn``'s three step functions run on smoke
+``model_flops`` are equal; every ``ok`` record reckons its work and
+collectives (two cells' collectives counted by hand); the dry run's CLI
+writes 80 records, 64 ``ok`` and 16 ``skipped``, with no null in
+``per_chip`` or ``roofline``; ``make_step_fn``'s three step functions run on smoke
 inputs on the CPU.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices;
@@ -88,24 +90,67 @@ def test_cell_numbers_equal_the_reference(ref_dryrun, multi_pod):
         got["model_flops"] = rec["roofline"]["model_flops"]
         assert got == want, (arch, shape)
         assert rec["fits"] == (rec["arg_bytes_per_device"] <= rec["device_memory_bytes"])
-        for key in ("memory_analysis", "cost_analysis_raw", "collectives", "lower_s",
-                    "compile_s"):
+        for key in ("memory_analysis", "cost_analysis_raw", "lower_s", "compile_s"):
             assert rec[key] is None
-        if rec["per_chip"] is not None:
-            assert rec["per_chip"]["flops"] > 0 and rec["per_chip"]["coll_bytes"] is None
-            assert rec["roofline"]["flops"] == rec["per_chip"]["flops"]
+        assert rec["per_chip"]["flops"] > 0 and rec["per_chip"]["bytes"] > 0
+        assert rec["roofline"]["flops"] == rec["per_chip"]["flops"]
+        assert rec["per_chip"]["coll_bytes"] == sum(rec["collectives"].values()) > 0
+        assert rec["roofline"]["coll_bytes"] == rec["per_chip"]["coll_bytes"]
+        assert rec["roofline"]["t_collective_s"] > 0
 
 
 def test_reckoned_work_is_the_roofline_over_the_chips():
     """Llama-3.2-3B train_4k on the pod: ``per_chip`` is the whole step of
-    ``lm_train_roofline`` (remat, as the cell builds it) over 256 chips."""
+    ``lm_train_roofline`` (remat, as the cell builds it) over 256 chips;
+    xLSTM-1.3B decode_32k on the multi-pod mesh: one ``lm_step_roofline``
+    decode step of 128 sequences at context 32,768 over 512 chips."""
     from repro_torch.utils import roofline as rl
     rec = dryrun.run_cell("llama3.2-3b", "train_4k", multi_pod=False, verbose=False)
     work = rl.lm_train_roofline(get_config("llama3.2-3b"), 256, 4096, remat=True)
     assert rec["per_chip"] == {"flops": work.flops / 256, "bytes": work.hbm_bytes / 256,
-                               "coll_bytes": None}
+                               "coll_bytes": sum(rec["collectives"].values())}
     rec = dryrun.run_cell("xlstm-1.3b", "decode_32k", multi_pod=True, verbose=False)
-    assert rec["per_chip"] is None and set(rec["roofline"]) == {"model_flops"}
+    work = rl.lm_step_roofline(get_config("xlstm-1.3b"), 128, 1, 32768)
+    assert rec["per_chip"] == {"flops": work.flops / 512, "bytes": work.hbm_bytes / 512,
+                               "coll_bytes": sum(rec["collectives"].values())}
+    assert rec["roofline"]["flops"] == work.flops / 512
+    assert rec["roofline"]["t_memory_s"] == work.hbm_bytes / 512 / rl.HBM_BYTES_PER_S
+
+
+def test_collectives_equal_a_hand_count():
+    """The collective model of ``launch/dryrun.py`` counted by hand for a dense
+    train cell and a MoE decode cell. Every axis of both meshes crosses
+    8-GPU nodes, so each collective runs at the InfiniBand rate."""
+    from repro_torch.utils import roofline as rl
+    ib = rl.IB_BYTES_PER_S
+    # Llama-3.2-3B train_4k on 16 x 16: 16 sequences of 4,096 a chip, D 3072,
+    # bf16; heads padded to 32 shard, the 8 KV heads do not; the vocabulary
+    # (128,256) shards. Forward: the embedding's all-reduce and two a layer
+    # (after wo and w_down); backward two a layer and the head's input
+    # gradient; remat two a layer more; the loss's max, sum and gold logit.
+    act = 16 * 4096 * 3072 * 2
+    ar = (1 + 3 * 2 * 28 + 1) * act + 3 * 16 * 4096 * 4
+    # every leaf's ZeRO-1 m / v shard over data: the chip's model shard of
+    # each bf16 gradient is reduce-scattered, the param all-gathered after
+    local = 2 * (128256 * 3072 // 16 + 3072 + 28 * (
+        3 * 3072 * 8192 // 16 + 2 * 3072 * 32 * 128 // 16 + 2 * 3072 * 8 * 128 + 2 * 3072))
+    rec = dryrun.run_cell("llama3.2-3b", "train_4k", multi_pod=False, verbose=False)
+    assert rec["collectives"] == {"all-gather": local / 16, "all-reduce": ar,
+                                  "reduce-scatter": local, "all-to-all": 0.0,
+                                  "collective-permute": 0.0}
+    t = (2 * 15 / 16 * ar + 15 / 16 * local + 15 * local / 16) / ib
+    assert math.isclose(rec["roofline"]["t_collective_s"], t, rel_tol=1e-12)
+    # OLMoE-1B-7B decode_32k on 2 x 16 x 16: 4 sequences a chip, one token
+    # each; 16 heads and 16 KV heads shard (the cache by heads: no split-K);
+    # the embedding's all-reduce, one a layer after wo; the experts shard,
+    # C = ceil(4 * 8 / 64 * 1.25) = 1, so a dispatch and a combine of 64 x 1
+    # x 2048 bf16 / 16 a layer; the untied head leaves its logits sharded.
+    rec = dryrun.run_cell("olmoe-1b-7b", "decode_32k", multi_pod=True, verbose=False)
+    ar, a2a = (1 + 16) * 4 * 2048 * 2, 16 * 2 * 64 * 2048 * 2 / 16
+    assert rec["collectives"] == {"all-gather": 0.0, "all-reduce": ar, "reduce-scatter": 0.0,
+                                  "all-to-all": a2a, "collective-permute": 0.0}
+    t = (2 * 15 / 16 * ar + 15 / 16 * a2a) / ib
+    assert math.isclose(rec["roofline"]["t_collective_s"], t, rel_tol=1e-12)
 
 
 def test_the_port_sets_no_environment_variable():
@@ -128,6 +173,14 @@ def test_cli_writes_the_reference_records(tmp_path):
     skipped = [r for r in recs if r["status"] == "skipped"]
     assert len(skipped) == 16 and {r["shape"] for r in skipped} == {"long_500k"}
     assert {r["mesh"] for r in recs} == {"16x16", "2x16x16"}
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        assert all(isinstance(v, float) for v in r["per_chip"].values()), r["arch"]
+        assert None not in r["roofline"].values(), (r["arch"], r["shape"])
+        assert all(isinstance(v, float) for v in r["collectives"].values())
+        assert [k for k, v in r.items() if v is None] == [
+            "lower_s", "compile_s", "memory_analysis", "cost_analysis_raw"]
 
 
 SMOKE_SHAPES = {"train": ShapeConfig("train", 16, 2, "train"),
