@@ -419,6 +419,11 @@ LM_DECODE_TOL = 5e-2
 # beside the noise floor, and the decode is held against the full forward
 # in float32 (the weights cast in place, TF32 off) within LM_WIDTH_TOL.
 LM_DECODE_FLOAT32 = ("xlstm-1.3b",)
+# The memory model (utils/memory.py) against the caching allocator: one
+# prefill and one decode step of each full model, and one Llama-3.2-3B
+# train step, each within this fraction of the allocator's rise above what
+# was allocated just before it.
+MEMORY_TOL = 0.10
 
 # Phase 20: LM training (no OMS kernel runs on it). Width checks in float32
 # (TF32 off) at full width cut to TRAIN_WIDTH_LAYERS layers, OLMoE at
@@ -2900,6 +2905,49 @@ def float32_decode_check(torch, model, params, prompt, first, frames, ref_bf16,
             "bf16_full_vs_float32_full": floor, "batch": prompt.shape[0]}
 
 
+def memory_check(torch, what: str, fn, predicted: float) -> dict:
+    """``fn()`` once on the card: the caching allocator's high-water mark
+    above what was allocated just before it (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``) against ``predicted``, the memory model's
+    ``temp`` for the step (``utils/memory.py``); a miss beyond MEMORY_TOL
+    fails the run."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    del out
+    ratio = predicted / rise
+    log(f"[memory] {what}: predicted {predicted / 2**30:.3f} / allocator {rise / 2**30:.3f} "
+        f"GiB (ratio {ratio:.4f})")
+    require(abs(ratio - 1) <= MEMORY_TOL,
+            f"{what}: the memory model's {predicted:.0f} bytes against the allocator's "
+            f"{rise} (ratio {ratio:.4f}, bound {MEMORY_TOL})")
+    return {"predicted_bytes": predicted, "allocator_bytes": rise, "ratio": ratio}
+
+
+def lm_memory_checks(torch, model, params, inputs, B: int, P: int, G: int) -> dict:
+    """A prefill of B x P into a fresh cache of P + G and the decode step at
+    index P after it, each against ``memory.lm_step_memory``."""
+    from repro_torch.utils import memory
+    cfg = model.cfg
+    enc = {"enc_seq": P} if cfg.family == "audio" else {}
+    cache = model.init_cache(B, P + G, **enc, device=DEVICE)
+    kw = {"enc_seq": P, "chunk": model.chunk}
+    out = {"prefill": memory_check(
+        torch, f"{cfg.name} prefill {B}x{P}",
+        lambda: model.prefill(params, inputs, cache),
+        memory.lm_step_memory(cfg, B, P, P + G, **kw).temp)}
+    token = inputs["tokens"][:, :1]
+    out["decode"] = memory_check(
+        torch, f"{cfg.name} decode B={B} at {P}",
+        lambda: model.decode_step(params, cache, {"token": token, "index": P}),
+        memory.lm_step_memory(cfg, B, 1, P + G, **kw).temp)
+    del cache
+    return out
+
+
 def lm_full_model(torch, arch: str) -> dict:
     """``arch`` at full width and depth in bf16 on the card, at
     LM_FULL_SHAPES[arch] = (B, P, G): parameter counts, the prefill of B x P
@@ -2987,6 +3035,7 @@ def lm_full_model(torch, arch: str) -> dict:
                         f"{arch} bf16 decode of token {P + 1} against the full forward: "
                         f"{decode_err:.3e} of max |ref| (bound {LM_DECODE_TOL})")
         peak = torch.cuda.max_memory_allocated()
+        mem_checks = lm_memory_checks(torch, model, params, inputs, B, P, G)
         if cfg.moe is not None:
             check = moe_decode_check(torch, params, cfg, prompt, first, model.chunk)
         elif arch in LM_DECODE_FLOAT32:
@@ -3024,6 +3073,7 @@ def lm_full_model(torch, arch: str) -> dict:
         "device_profile": {"prefill": profiles["prefill"],
                            f"decode_{min(LM_PROFILE_STEPS, G)}_steps": profiles["decode"]},
         "peak_bytes": peak, "peak_bytes_above_baseline": peak - base,
+        "memory_model": mem_checks,
     }
     if audio:
         out["prefill"]["encoder_frames"] = P
@@ -3348,6 +3398,11 @@ def train_full_model(torch, B: int) -> dict:
                 f"{TRAIN_ARCH} train step {len(losses) - 1}: loss {losses[-1]}, "
                 f"grad_norm {gnorms[-1]}")
     peak = torch.cuda.max_memory_allocated()
+    from repro_torch.utils import memory
+    mem_check = memory_check(
+        torch, f"{TRAIN_ARCH} train step {B}x{TRAIN_SEQ}, remat",
+        lambda: step(state, batches[-2]),
+        memory.lm_train_memory(cfg, B, TRAIN_SEQ, remat=True, chunk=TRAIN_SEQ).temp)
     torch.cuda.synchronize()
     with serve_profiler(torch) as prof:
         t0 = time.perf_counter()
@@ -3386,6 +3441,7 @@ def train_full_model(torch, B: int) -> dict:
            "mfu": roof.model_flops / (med / 1e3) / R.PEAK_FLOPS_BF16,
            "bound_share": roof.t_bound * 1e3 / med,
            "peak_bytes": peak, "peak_bytes_above_baseline": peak - base,
+           "memory_model": mem_check,
            "device_profile_one_step": profile, "split": split}
     log(f"[train] {TRAIN_ARCH} bf16, {cfg.n_layers} layers, remat: {n_padded / 1e9:.3f} B "
         f"params as padded; params {state_bytes['params'] / 1e9:.2f} GB, m + v "
@@ -3746,9 +3802,19 @@ def dist_dryrun() -> dict:
         None in r["per_chip"].values() or None in r["roofline"].values()
         or r["collectives"] is None)]
     require(not nulls, f"dryrun: records with a null work or collective field: {nulls}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    no_memory = [(r["arch"], r["shape"], r["mesh"]) for r in ok
+                 if not isinstance(r.get("memory_analysis"), dict)]
+    require(not no_memory, f"dryrun: ok records without memory_analysis: {no_memory}")
+    largest = max(ok, key=lambda r: r["memory_analysis"]["peak_bytes"])
     llama = {r["mesh"]: r for r in recs if r["arch"] == DIST_ARCH and r["shape"] == "train_4k"}
     out = {"process_s": t, "records": len(recs), **status,
            "fits": sum(bool(r.get("fits")) for r in recs),
+           "fits_by_mesh": {m: sum(bool(r["fits"]) for r in ok if r["mesh"] == m)
+                            for m in ("16x16", "2x16x16")},
+           "largest_peak": {"arch": largest["arch"], "shape": largest["shape"],
+                            "mesh": largest["mesh"],
+                            "peak_bytes": largest["memory_analysis"]["peak_bytes"]},
            "llama_train_4k_bytes_per_device": {m: r["arg_bytes_per_device"]
                                                for m, r in llama.items()},
            "device_memory": {r["device_memory_source"]: r["device_memory_bytes"]
@@ -3757,6 +3823,10 @@ def dist_dryrun() -> dict:
         f"in {t:.1f}s; {DIST_ARCH} train_4k per-device bytes: "
         + ", ".join(f"{m} {b / 2**30:.3f} GiB ({b:.0f})"
                     for m, b in out["llama_train_4k_bytes_per_device"].items()))
+    log(f"[dist] dryrun memory: cells that fit "
+        + ", ".join(f"{m} {n} of 32" for m, n in out["fits_by_mesh"].items())
+        + f"; largest peak {largest['memory_analysis']['peak_bytes'] / 2**30:.3f} GiB "
+        f"({largest['arch']} {largest['shape']} on {largest['mesh']})")
     require(len(recs) == 80 and status == {"ok": 64, "skipped": 16, "error": 0}
             and set(llama) == {"16x16", "2x16x16"} and o.strip().endswith("0 failures"),
             f"dryrun: {out}")

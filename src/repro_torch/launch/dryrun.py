@@ -11,8 +11,7 @@ port restates what it can without one:
     on the production mesh of 256 or 512 ``meta`` entries;
   * ``arg_bytes_per_device``: the bytes each device holds under the
     sharding rules after ``enforce_divisibility`` (the reference's
-    ``_sharded_arg_bytes``, equal to its numbers), and ``fits``: that
-    against the card's memory;
+    ``_sharded_arg_bytes``, equal to its numbers);
   * ``per_chip`` FLOPs and bytes: the analytic work of the whole step
     (``utils/roofline.lm_train_roofline`` / ``lm_step_roofline``, every
     family as the port formulates it) over the chips, and ``roofline``
@@ -22,14 +21,94 @@ port restates what it can without one:
     convention: the bytes each collective of the per-device program takes
     in), ``per_chip.coll_bytes`` (their sum) and ``roofline.t_collective_s``
     reckoned from the sharding rules the cell is laid out with, by the
-    model below.
+    model below;
+  * ``memory_analysis``: the step's ``argument_bytes`` (=
+    ``arg_bytes_per_device``), ``output_bytes``, ``temp_bytes`` and
+    ``peak_bytes`` (arguments + temp) on one chip, by the memory model
+    below, and ``fits``: ``peak_bytes`` against the card's memory.
 
-Written as null, with no PyTorch counterpart: ``memory_analysis`` (XLA's
-argument / output / temp / peak bytes of the compiled program),
-``cost_analysis_raw`` (XLA's own cost analysis), ``lower_s`` and
-``compile_s``: no XLA compile exists. ``--unroll`` is accepted and
-recorded; the analytic count is whole-step either way. No environment
-variable is set.
+Written as null, with no PyTorch counterpart: ``cost_analysis_raw``
+(XLA's own cost analysis), ``lower_s`` and ``compile_s``: no XLA compile
+exists. ``--unroll`` is accepted and recorded; the analytic counts are
+whole-step either way. No environment variable is set.
+
+The memory model (``utils/memory.py``). XLA's ``memory_analysis`` is that
+of its compiled, scheduled program; the port runs its step eagerly, so the
+model counts the bytes the eager step brings to life on one chip:
+
+  * ``argument_bytes``: the step's inputs on the chip under their
+    shardings (params, optimizer state, batch, caches), as above;
+  * ``output_bytes``: what the step returns that is not an argument
+    updated in place: for training the loss and two metrics (AdamW writes
+    params, ``m`` and ``v`` in place); for prefill and decode the last
+    position's logits (the chip's vocabulary shard), and Whisper's prefill
+    also its fresh cross K/V (``cache["ck"]`` / ``["cv"]`` are replaced, at
+    the cache's shard);
+  * ``temp_bytes``: the high-water mark of every other byte alive on the
+    chip during the step (the outputs while they live), from a ledger that
+    walks the port's code in program order: each op's output is born where
+    the code makes it and dies with its last Python reference, or, in a
+    training forward, when autograd releases what it saved;
+  * ``peak_bytes`` = ``argument_bytes`` + ``temp_bytes``, and ``fits`` is
+    ``peak_bytes <= device_memory_bytes``.
+
+The ledger's layout is the collective model's: the chip's rows are the
+global batch over the data axes it divides (training divides them again
+into ``--microbatches``); the model axis cuts q heads (with ``wq``), K/V
+heads (with ``wk``), d_ff, the MoE experts (the router and dispatch plan
+run over all E), the RG-LRU / mLSTM / sLSTM widths and the logits'
+vocabulary where their weights shard; the mLSTM's 4 heads do not divide 16
+and run whole; a decode over a sequence-sharded cache attends split-K over
+the chip's cache rows with every head. Weights, their gradients and the
+AdamW temporaries are the chip's shards (the optimizer's the ZeRO-1 shard
+of ``m``). What the walk counts, family by family:
+
+  * every family: the embedding rows, RoPE's float32 cos / sin, each norm's
+    float32 work, the residual stream, the final norm, the logits;
+  * dense attention (``chunked_attention``): K/V repeated to the q heads
+    (more than one KV head), their float32 copies (bf16), and per q chunk
+    the float32 scores three times over (scores, scaled, masked) beside the
+    softmax, with einsum's copies of q, K^T and V (a transposed (B, H, S,
+    d) view is copied unless B or H is 1); the output projection's copy of
+    the transposed output;
+  * MLA: the q projection (its views keep it alive), the latent, the
+    up-projected K / V over the prompt (a decode: over the cache rows);
+  * MoE: the router's float32 probabilities and sort, the dispatch plan's
+    int64 arrays, the (E, C, D) buffers, the (E, C, F) gate / up / SiLU /
+    product, the combine's (T, K, D) gathers and their float32 weighted
+    sum;
+  * RG-LRU: the conv's padded history, the gates in float32 (bf16 weights
+    cast to float32 for their products), the log-depth scan's float32
+    concatenations level by level;
+  * xLSTM: the mLSTM's up-projection, conv, q / k / v, and per chunk the
+    whole sequence's K and V copied by einsum, the (chunk, S) inter-chunk
+    scores and the (chunk, chunk) intra-chunk terms; the sLSTM's float32
+    pre-activations (T, 4 D) and its S steps' h (training: about a dozen
+    (B, D) float32 tensors a step); a decode's (B, NH, DH, DH) memories;
+  * Whisper: the encoder, the L layers' cross K/V (a list and their
+    stacks), the decoder; a decode reads the cached cross K/V.
+
+Training (``make_train_step``): the forward keeps what autograd saves (each
+product's operands, the softmax, the activations' inputs), and per loss
+chunk of 512 positions the float32 logits; with ``remat`` each block keeps
+only its input and is recomputed, without its last product, before its
+backward. The backward is counted a stage at a time (a norm, an attention,
+an FFN or MoE, a recurrent cell, the loss), in reverse: each adds its
+transient (the loss: four (rows, V) float32 gradients; a norm: four of its
+float32 size; an attention: two score blocks of a chunk beside the float32
+K and V gradients; an FFN: w_down's gradient and two (T, d_ff)
+gradients), frees what its forward kept and adds its weights' gradients;
+a gradient passing through adds one (T, D). With microbatches the float32
+accumulators live throughout and one microbatch's gradients until they are
+added. Then ``global_norm`` (each leaf's float32 copy and square) and
+``adamw_update`` (a leaf's float32 gradient, a temporary and the update,
+beside the previous leaf's update). Not counted: tensors of O(rows)
+(masks, positions, norm statistics, the sLSTM's per-step temporaries) and
+the kernels' own scratch (cuBLAS workspaces, sort buffers).
+``tests/test_torch_dryrun_memory.py`` holds ``temp`` against a live-bytes
+tracker over the real step on the CPU at one chip's layout, and
+``chip_smoke.py`` against ``torch.cuda.max_memory_allocated()`` on the
+card.
 
 The collective model. Layout: the batch shards over the data axes (pod and
 data) where it divides; weights, optimizer state and caches by
@@ -125,6 +204,7 @@ from repro_torch.distributed.sharding import tree_items
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import make_cell
 from repro_torch.models.transformer import block_layout
+from repro_torch.utils import memory
 from repro_torch.utils import roofline as rl
 
 # NVIDIA H100 SXM5 datasheet: 80 GB of HBM3, read when no card is present
@@ -430,6 +510,87 @@ def reckon_collectives(cell, cfg, shape, mesh) -> tuple[dict, float]:
     return by_kind, seconds
 
 
+# ---------------------------------------------------------------------------
+# memory (the model in the module docstring; utils/memory.py)
+# ---------------------------------------------------------------------------
+
+
+def _shards(parts, mesh) -> int:
+    return math.prod(mesh.shape[a] for part in parts for a in _axes_of(part))
+
+
+def _memory_split(cfg, params: dict, caches: dict | None, M: int, *,
+                  decode: bool) -> memory.Split:
+    """Which of one chip's activations the model axis cuts, read off the
+    weights' and caches' spec tables as the collective model reads them."""
+    def cut(key, *offsets):
+        return M if key in params and _split(params[key][0], *offsets) else 1
+
+    btype = next(b for b in (*dict.fromkeys(block_layout(cfg)), "dec_blocks")
+                 if any(k.startswith(f"{b}/") for k in params))
+    attn = {"dec_blocks": "dec_blocks/self_attn"}.get(btype, f"{btype}/attn")
+    ffn = f"{btype}/ffn"
+    kv_seq = 1
+    if caches is not None:                             # its sequence shards: split-K
+        for key, off in ((f"{btype}/k", -3), (f"{btype}/ckv", -2), ("k", -3)):
+            if key in caches and _split(caches[key][0], off):
+                kv_seq = M
+    heads = cut(f"{attn}/wq", -2)
+    if any(k.startswith("mlstm/") for k in params):
+        heads = M if cfg.n_heads % M == 0 else 1   # the mLSTM's q, k, v gathered
+    width = max(cut("rec/rec/w_in_main", -1), cut("mlstm/cell/w_up", -1),
+                cut("slstm/cell/w_zifo", -1))
+    return memory.Split(
+        heads=1 if decode and kv_seq > 1 else heads, kv_heads=cut(f"{attn}/wk", -2),
+        kv_seq=kv_seq,
+        ffn=max(cut(f"{ffn}/w_gate", -1) if cfg.moe is None else 1, cut(f"{ffn}/w_in", -1),
+                cut("slstm/cell/ffn_up", -1)),
+        experts=cut(f"{ffn}/w_gate", -3) if cfg.moe is not None else 1,
+        vocab=cut("unembed", -1) if "unembed" in params else cut("embed", -2),
+        width=width)
+
+
+def memory_analysis(cell, cfg, shape, mesh, arg_bytes: float, *,
+                    n_microbatches: int) -> dict:
+    """The step's argument, output, temp and peak bytes on one chip: the
+    chip's rows of the batch, its shard of every weight (the AdamW state's
+    ZeRO-1 shard for the optimizer's work) and its cut of the activations
+    (``_memory_split``), walked by ``utils/memory``."""
+    train = cell.kind == "train"
+    state, specs = cell.args[0], cell.in_specs[0]
+    params = _table(state.params, specs.params) if train else _table(state, specs)
+    caches = None
+    if cell.kind != "train":
+        ci = 1 if cell.kind == "decode" else 2
+        caches = _table(cell.args[ci], cell.in_specs[ci])
+    split = _memory_split(cfg, params, caches, mesh.shape["model"],
+                          decode=cell.kind == "decode")
+    B = shape.global_batch // _batch_shards(cell, mesh)
+    chunk = cell.model.chunk
+    e = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    if train:
+        opt = _table(state.opt["m"], specs.opt["m"])
+        weights = memory.params_of(
+            cfg, divisor=lambda path, _: _shards(params[path][0], mesh),
+            opt_divisor=lambda path, _: _shards(opt[path][0], mesh),
+            max_dec_seq=shape.seq_len)
+        mem = memory.lm_train_memory(cfg, B, shape.seq_len, remat=cell.model.remat,
+                                     n_microbatches=n_microbatches, chunk=chunk,
+                                     split=split, params=weights)
+        output = mem.output
+    else:
+        new = shape.seq_len if cell.kind == "prefill" else 1
+        mem = memory.lm_step_memory(cfg, B, new, shape.seq_len, enc_seq=shape.seq_len,
+                                    chunk=chunk, split=split)
+        output = B * -(-cfg.vocab_size // split.vocab) * e      # the last logits
+        if cfg.family == "audio" and cell.kind == "prefill":    # the fresh cross K/V
+            output += sum(math.prod(shp) * e / _shards(parts, mesh)
+                          for key, (parts, shp) in caches.items() if key in ("ck", "cv"))
+    arg = int(round(arg_bytes))
+    return {"argument_bytes": arg, "output_bytes": int(round(output)),
+            "temp_bytes": int(round(mem.temp)), "peak_bytes": arg + int(round(mem.temp))}
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              n_microbatches: int = 4, verbose: bool = True,
              unroll: bool = False, chunk: int = 1024) -> dict:
@@ -469,6 +630,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
                        coll_bytes_per_s=(coll_total / t_coll if t_coll
                                          else rl.NVLINK_BYTES_PER_S)).as_dict()
     arg_bytes_per_dev = _sharded_arg_bytes(cell.args, cell.in_specs, mesh)
+    mem_an = memory_analysis(cell, cfg, shape, mesh, arg_bytes_per_dev,
+                             n_microbatches=n_microbatches)
     mem, mem_source = device_memory()
     t_specs = time.time() - t0
 
@@ -478,10 +641,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         n_params=cell.n_params, n_params_active=cell.n_params_active,
         tokens_per_step=cell.tokens_per_step,
         lower_s=None, compile_s=None, specs_s=round(t_specs, 3),
-        memory_analysis=None,
+        memory_analysis=mem_an,
         arg_bytes_per_device=arg_bytes_per_dev,
         arg_bytes_global=cell.arg_bytes,
-        fits=arg_bytes_per_dev <= mem, device_memory_bytes=mem,
+        fits=mem_an["peak_bytes"] <= mem, device_memory_bytes=mem,
         device_memory_source=mem_source,
         cost_analysis_raw=None,
         per_chip=per_chip,
@@ -492,7 +655,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         print(f"[dryrun] {arch} x {shape_name} mesh={rec['mesh']}: specs "
               f"{t_specs:.2f}s flops={per_chip['flops']:.3e} bytes={per_chip['bytes']:.3e} "
               f"coll={coll_total:.3e} bottleneck={roof['bottleneck']} "
-              f"args/dev={arg_bytes_per_dev / 2**30:.2f}GiB fits={rec['fits']}")
+              f"args/dev={arg_bytes_per_dev / 2**30:.2f}GiB "
+              f"temp/dev={mem_an['temp_bytes'] / 2**30:.2f}GiB "
+              f"peak/dev={mem_an['peak_bytes'] / 2**30:.2f}GiB fits={rec['fits']}")
     return rec
 
 

@@ -4,9 +4,11 @@
 argument bytes, per-device argument bytes (the reference's
 ``dryrun._sharded_arg_bytes`` on its ``make_cell`` args) and
 ``model_flops`` are equal; every ``ok`` record reckons its work and
-collectives (two cells' collectives counted by hand); the dry run's CLI
-writes 80 records, 64 ``ok`` and 16 ``skipped``, with no null in
-``per_chip`` or ``roofline``; ``make_step_fn``'s three step functions run on smoke
+collectives (two cells' collectives counted by hand) and its
+``memory_analysis`` (``fits`` from its peak; ``tests/test_torch_dryrun_memory.py``
+holds the bytes); the dry run's CLI writes 80 records, 64 ``ok`` and 16
+``skipped``, with no null in ``per_chip``, ``roofline`` or
+``memory_analysis``; ``make_step_fn``'s three step functions run on smoke
 inputs on the CPU.
 
 Importing ``repro.launch.dryrun`` sets ``XLA_FLAGS`` to 512 host devices;
@@ -89,8 +91,10 @@ def test_cell_numbers_equal_the_reference(ref_dryrun, multi_pod):
         got = {k: rec[k] for k in want if k != "model_flops"}
         got["model_flops"] = rec["roofline"]["model_flops"]
         assert got == want, (arch, shape)
-        assert rec["fits"] == (rec["arg_bytes_per_device"] <= rec["device_memory_bytes"])
-        for key in ("memory_analysis", "cost_analysis_raw", "lower_s", "compile_s"):
+        assert rec["memory_analysis"]["argument_bytes"] == rec["arg_bytes_per_device"]
+        assert rec["fits"] == (rec["memory_analysis"]["peak_bytes"]
+                               <= rec["device_memory_bytes"])
+        for key in ("cost_analysis_raw", "lower_s", "compile_s"):
             assert rec[key] is None
         assert rec["per_chip"]["flops"] > 0 and rec["per_chip"]["bytes"] > 0
         assert rec["roofline"]["flops"] == rec["per_chip"]["flops"]
@@ -180,7 +184,9 @@ def test_cli_writes_the_reference_records(tmp_path):
         assert None not in r["roofline"].values(), (r["arch"], r["shape"])
         assert all(isinstance(v, float) for v in r["collectives"].values())
         assert [k for k, v in r.items() if v is None] == [
-            "lower_s", "compile_s", "memory_analysis", "cost_analysis_raw"]
+            "lower_s", "compile_s", "cost_analysis_raw"]
+        assert set(r["memory_analysis"]) == {"argument_bytes", "output_bytes",
+                                             "temp_bytes", "peak_bytes"}
 
 
 SMOKE_SHAPES = {"train": ShapeConfig("train", 16, 2, "train"),
