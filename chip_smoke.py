@@ -69,12 +69,16 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      fused_search_mxu on the whole batch, its plain version run once,
      compared and timed).
  11. top_k above 16: both fused kernels against their plain versions on
-     the main-path check blocks at k = 17, 32 and 64, and timed on the
-     whole batch at k = 16, 17, 32 and 64; the limits that were widened
-     (fused_search_mxu past 256 words, the fused kernels at their widest
-     W, the tile kernels past 65,535 query tiles, hamming_matrix past
-     3,632 words, the grouped launch past 65,535 groups) against the plain
-     versions; the limits that remain raise their stated errors.
+     the main-path check blocks at k = 17, 32, 64, 65, 128, 600 and 1024
+     (past 64 the winner lists live in device memory), and timed on the
+     whole batch at k = 16, 17, 32, 64, 65, 128, 600 and 1024; the limits
+     that were widened against the plain versions: fused_search_mxu past 256
+     words, the fused kernels at their widest shared-list W, at k = 65, at
+     k past the rows a block scans, at W = 2,496 / 2,432 (past the old
+     shared-memory bound) and W = 4,096 (queries staged in word chunks;
+     also timed there on a seeded batch), the tile kernels past 65,535
+     query tiles, hamming_matrix past 3,632 words, the grouped launch past
+     65,535 groups. No fused launch limit is left to raise.
  12. the store: OMSPipeline.ingest of the Table I library (chunks of 65,536
      rows) into a store under build/ (its free space printed first), then
      from_store(resident=True): its DB equals phase 3's in all eight
@@ -96,8 +100,9 @@ Phases (any failure exits nonzero; nothing is caught into a success):
      from the repository root (free disk printed first): ``build`` of the
      Table I library, byte-identical to phase 12's store (then deleted);
      ``search`` (fused, pallas), its recall and identification lines equal
-     to phase 3's, and ``search --cascade``, stage 1 identifying as many as
-     the in-process cascade; ``queries`` of the 16,000 requests; ``serve
+     to phase 3's, ``search --cascade``, stage 1 identifying as many as
+     the in-process cascade, and ``search --top-k 128``, its recall@1 lines
+     phase 3's and its recall@128 line the in-process search's; ``queries`` of the 16,000 requests; ``serve
      --resident`` (no cache, traced) on all of them, every response equal
      to phase 3's row; streamed ``serve`` at 2^18 rows a slab on the first
      1,024 at 256 a batch (a scan reads the whole store), byte-identical to
@@ -298,10 +303,15 @@ FUSED_EDGE_CASES = (
 )
 
 
-# Phases 11-15: top_k above the old cap of 16, the store, the streaming
-# engine and the narrow→open cascade.
-TOPK_CHECK_KS = (17, 32, 64)
-TOPK_TIME_KS = (16, 17, 32, 64)
+# Phases 11-15: top_k above 16 (past 64 the winner lists live in device
+# memory), the store, the streaming engine and the narrow→open cascade.
+TOPK_CHECK_KS = (17, 32, 64, 65, 128, 600, 1024)
+TOPK_TIME_KS = (16, 17, 32, 64, 65, 128, 600, 1024)
+TOPK_TIME_ITERS = 3
+# Rows past the old shared-memory bound: (rows, W, blocks, rk) of the
+# seeded batch each fused kernel is timed on at W = 4,096 words, k = 1.
+WIDE_TIME = (1 << 15, 4096, 64, 8192)
+LAUNCHER_TOP_K = 128     # one `search --top-k` run past the old cap of 64
 STORE_DIR = HERE / "build" / "smoke_store"
 # Streamed slab sizes in rows: 2^18, a prime number of blocks (37 of 4,096
 # rows), the whole store.
@@ -1533,17 +1543,6 @@ def phase_times_mxu(torch, env, pipe, hvs, q_pmz, q_charge, launches,
 # ---------------------------------------------------------------------------
 
 
-def require_raises(fn, match: str, what: str) -> None:
-    """``fn()`` must raise ValueError whose message contains ``match``."""
-    try:
-        fn()
-    except ValueError as e:
-        require(match in str(e), f"{what}: raised {e!r}, expected {match!r}")
-        log(f"[limits] {what}: raises ValueError({str(e)!r})")
-        return
-    fail(f"{what}: did not raise")
-
-
 def _plain_pair(torch, name, kern, plain, args, kw, what) -> None:
     got = kern.fused_search(*args, **kw)
     torch.cuda.synchronize()
@@ -1567,8 +1566,9 @@ def phase_topk(torch, pipe, hvs, q_pmz, q_charge) -> dict:
                         f"at k={k} on the main-path check blocks")
         log(f"[topk] fused_search and fused_search_mxu kernels == plain on "
             f"{len(pick)} main-path query blocks x {rk} rows at k={k}: bit-identical")
-    # Times on the whole batch: k <= 16 is the old path; above, the lists
-    # grow and G falls to 1 where a CTA's shared memory no longer fits 8.
+    # Times on the whole batch: k <= 16 is the old path; up to 64 the
+    # shared lists grow and G falls to 1 where a CTA's shared memory no
+    # longer fits 8; past 64 the lists live in device memory (G = 8).
     _, qh, qp, qc, starts = sorted_batch(torch, pipe, hvs, q_pmz, q_charge)
     db = pipe.db
     fargs = (qh, qp, qc, db.hvs, db.pmz, db.charge, starts)
@@ -1576,19 +1576,33 @@ def phase_topk(torch, pipe, hvs, q_pmz, q_charge) -> dict:
     for name, kern, _ in kernels:
         scratch = mops.FUSED_SCRATCH_PER_TILE if kern is mops else 0
         for k in TOPK_TIME_KS:
-            g = (hops.GROUP if hops.fused_smem_bytes(hops.GROUP, db.n_words, k, scratch)
-                 <= hops.FUSED_SMEM_BUDGET else 1)
-            ms = cuda_ms(lambda: kern.fused_search(*fargs, **dict(base, k=k)), iters=3)
+            plan = hops.fused_plan(db.n_words, k, scratch)
+            # A device-list run at these k takes 0.2-6 s: one run, its kernel
+            # already loaded by the checks above.
+            once = plan.lists == "global"
+            ms = cuda_ms(lambda: kern.fused_search(*fargs, **dict(base, k=k)),
+                         iters=1 if once else TOPK_TIME_ITERS, warmup=not once)
             times[f"{name} k={k}"] = ms
             log(f"[topk] {name} on the whole batch ({starts.shape[0]} blocks x {rk} "
-                f"rows) at k={k}: {ms:.3f} ms ({g} query tiles per CTA)")
-    phase_limits(torch, kernels)
+                f"rows) at k={k}: {ms:.3f} ms ({plan.group} query tiles per CTA, "
+                f"{plan.lists} lists)")
+    times.update(phase_limits(torch, kernels))
     return times
 
 
-def phase_limits(torch, kernels) -> None:
-    """The widened limits against the plain versions; the remaining ones
-    raise their stated errors."""
+def _plan_of(kern, W: int, k: int):
+    from repro_torch.kernels.hamming import ops as hops
+    from repro_torch.kernels.hamming_mxu import ops as mops
+    p = hops.fused_plan(W, k, mops.FUSED_SCRATCH_PER_TILE if kern is mops else 0)
+    return (f"G = {p.group}, {p.lists} lists, queries staged "
+            f"{'whole' if p.query_words >= -(-W // 16) * 16 else f'in {p.query_words}-word chunks'}")
+
+
+def phase_limits(torch, kernels) -> dict:
+    """The widened limits against the plain versions: the fused kernels at
+    k past 64, past the rows a block scans, and at W past the old
+    shared-memory bound (timed at W = 4,096 on a seeded batch). Returns
+    {"<kernel> W=4096 k=1": ms}."""
     from repro_torch.kernels.hamming import ops as hops
     from repro_torch.kernels.hamming import ref as href
     from repro_torch.kernels.hamming_mxu import ops as mops
@@ -1603,16 +1617,38 @@ def phase_limits(torch, kernels) -> None:
                         dict(q_block=16, rk=256, dim=32 * W, k=k), f"at W={W}")
             log(f"[limits] {name} kernel == plain at W = {W} words, k={k} "
                 f"(3 blocks x 256 rows): bit-identical")
-    # Remaining limits: k > K_MAX; W past the shared-memory bound.
-    args = fused_edge_inputs(torch, g, 600, 8, (0,), 256, 16)
+    # The old limits, now widened: k = 65; k past the rows a block scans
+    # (the last block's scan is cut at the last row to 60 rows, 6 of them
+    # padding); W past the old one-tile bound (2,480 and 2,416 words) and
+    # W = 4,096 (queries in word chunks), also with k past 64.
+    for what, n_rows, W, starts, rk, k in (
+            ("k = 65", 600, 8, (0, 40, 300), 256, 65),
+            ("k past the rows scanned", 600, 8, (0, 540), 100, 128),
+            ("k past the rows scanned", 600, 7, (0, 590), 64, 65),
+            ("W past the old bound", 600, 2496, (0, 40, 300), 256, 1),
+            ("W past the old bound", 600, 2432, (0, 40, 300), 256, 1),
+            ("W = 4096", 600, 4096, (0, 40, 300), 256, 1),
+            ("W = 4096", 600, 4096, (0, 40, 300), 256, 4),
+            ("W = 4096", 600, 4096, (0, 40, 300), 256, 100)):
+        args = fused_edge_inputs(torch, g, n_rows, W, starts, rk, 16)
+        for name, kern, plain in kernels:
+            _plain_pair(torch, name, kern, plain, args,
+                        dict(q_block=16, rk=rk, dim=32 * W, k=k), f"at {what} (W={W}, k={k})")
+        scanned = min(rk, n_rows - starts[-1])
+        log(f"[limits] fused_search and fused_search_mxu kernels == plain at {what}: "
+            f"W = {W} words, k = {k}, {len(starts)} blocks x {rk} rows (last block scans "
+            f"{scanned}); {_plan_of(hops, W, k)} / {_plan_of(mops, W, k)}: bit-identical")
+    n_rows, W, nqb, rk = WIDE_TIME
+    wide = fused_edge_inputs(torch, g, n_rows, W, tuple(range(0, n_rows - rk, (n_rows - rk) // nqb))[:nqb],
+                             rk, 16)
+    times = {}
     for name, kern, _ in kernels:
-        require_raises(lambda: kern.fused_search(*args, q_block=16, rk=256, dim=256,
-                                                 k=hops.K_MAX + 1),
-                       f"keeps 1..{hops.K_MAX} winners", f"{name} at k={hops.K_MAX + 1}")
-    for name, kern, W in (("fused_search", hops, 2496), ("fused_search_mxu", mops, 2432)):
-        wide = fused_edge_inputs(torch, g, 64, W, (0,), 64, 16)
-        require_raises(lambda: kern.fused_search(*wide, q_block=16, rk=64, dim=32 * W, k=1),
-                       "of shared memory", f"{name} at W={W}")
+        ms = cuda_ms(lambda: kern.fused_search(*wide, q_block=16, rk=rk, dim=32 * W, k=1),
+                     iters=TOPK_TIME_ITERS)
+        times[f"{name} W={W} k=1"] = ms
+        log(f"[limits] {name} at W = {W} words, k = 1 ({nqb} blocks x {rk} rows of "
+            f"{n_rows}; {_plan_of(kern, W, 1)}): {ms:.3f} ms")
+    del wide
     # The tile kernels past 65,535 query tiles (two launches each) and
     # hamming_matrix past its 3,632 staged words (word chunks, summed).
     for Q, R, W in ((hops.TILE_Q_CHUNK + 17, 9, 1), (16, 1000, 4000)):
@@ -1656,6 +1692,7 @@ def phase_limits(torch, kernels) -> None:
     log(f"[limits] fused_search and fused_search_mxu on {nqb} query blocks "
         f"({-(-nqb // hops.GROUP)} groups of {hops.GROUP} tiles) == plain on the "
         f"{nqb - b0} blocks around the launch boundary: bit-identical")
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -2317,6 +2354,21 @@ def phase_launcher(torch, lib_cfg, cfg, pipe, hvs, q_pmz, q_charge, out, ds,
     split = [x for x in lines if "stage split" in x]
     log(f"[cli] search --cascade (process {t:.1f}s): {cl[0][6:]}; recall and "
         f"identification lines == the in-process cascade's; {' | '.join(split)}")
+    # search past the old top_k cap of 64: the recall@1 lines are phase 3's
+    # and recall@k is the in-process search's at that k.
+    import numpy as np
+    kout = pipe.search_encoded(hvs, q_pmz, q_charge, top_k=LAUNCHER_TOP_K)
+    hit = (kout.result.open_idx.cpu().numpy() == ds.query_source[:, None]).any(axis=1)
+    want_k = (f"[oms] open-search recall@{LAUNCHER_TOP_K}:     {hit.mean():.3f} "
+              f"(modified: {hit[ds.query_modified].mean():.3f})")
+    del kout
+    o, _, t = oms_cli([*search, "--top-k", LAUNCHER_TOP_K], f"search --top-k {LAUNCHER_TOP_K}")
+    lines = o.splitlines()
+    for want in (*expect[:2], want_k):
+        require(want in lines, f"search --top-k {LAUNCHER_TOP_K} printed no line "
+                f"{want!r}:\n{o}")
+    log(f"[cli] search --top-k {LAUNCHER_TOP_K} (process {t:.1f}s): {want_k[6:].strip()}; "
+        f"recall@1 lines == phase 3's, recall@{LAUNCHER_TOP_K} == the in-process search's")
 
     # 3. queries
     _, _, t = oms_cli(["queries", "--queries", Q, *data], "queries", stdout=REQUESTS_FILE)

@@ -223,10 +223,13 @@ def _mxu_bound(c) -> int:
 def _fused_bound_for(backend: str):
     def bound(c):
         from repro_torch.kernels.hamming import ops as hops
+        from repro_torch.kernels.hamming_mxu import ops as mops
         t = _tuned(backend, c["dim"], c["top_k"], c["q_block"], c["rk"],
                    c.get("device"))
+        scratch = mops.FUSED_SCRATCH_PER_TILE if backend == "fused_mxu" else 0
         partial = hops.fused_partial_bytes(
             c["n_queries"], c["q_block"], c["rk"], c["top_k"], c["n_sms"],
+            n_words=c["n_words"], scratch_per_tile=scratch,
             waves=t["waves"], min_split_rows=t["min_split_rows"])
         # the partial buffer, the (Qp, k) winners, a (Qp,) 8-byte plan
         # array, the (n_rows,) sidecars
@@ -246,9 +249,9 @@ _declare("search:kernel_mxu", "peak_intermediate", bound=_tile_bound,
               "gathered rows")
 _declare("search:fused", "peak_intermediate",
          bound=_fused_bound_for("fused"),
-         note="fused CUDA kernel: the split partial buffer (n_tiles, "
-              "n_splits, 32, k) int64 or the (Qp, k) winners; the DB is "
-              "read in place")
+         note="fused CUDA kernel: the winner lists' partial buffer "
+              "(n_tiles, n_splits, 32, k) int64 (n_splits = 1 with lists in "
+              "device memory) or the (Qp, k) winners; the DB is read in place")
 _declare("search:fused_mxu", "peak_intermediate",
          bound=_fused_bound_for("fused_mxu"),
          note="fused int8 CUDA kernel: the split partial buffer or the "

@@ -50,6 +50,16 @@
 //    shared memory, filled by all warps with insert_atomic (winners.cuh);
 //    at the end each list is the CTA's partial for its split, and
 //    fused_search_merge merges the splits.
+//  * Any k and W (GLOBAL_LISTS). Where k > KSHARED or one tile's queries and
+//    lists do not fit in shared memory, the lists live in device memory, one
+//    per (tile, list) shared by every split of the group, and all CTAs
+//    insert with insert_atomic_from (the chains merge the splits;
+//    fused_search_decode decodes). Shared memory then holds G = GROUP
+//    tiles' queries, in word chunks of `qw` (a multiple of 32 words) where
+//    all Wp words do not fit: each pass stages a chunk before its steps,
+//    between two CTA barriers, and the route reads it through a pointer
+//    shifted back by the chunk's first word (32-word chunks keep the
+//    swizzle's XOR inside the chunk). |q| then comes from device memory.
 #pragma once
 
 #include <cstdint>
@@ -138,7 +148,8 @@ struct LanePairs {
 // best flagged key, the quad's best is inserted, and every lane drops the
 // pairs that fall below the list's k-th sim; so a quad makes at most k
 // insertions per call and one per list once the list is full. All 32
-// lanes must call it.
+// lanes must call it. GLOBAL_LISTS: the list is in device memory.
+template <bool GLOBAL_LISTS>
 __device__ __forceinline__ void offer_quad(winner_t* list, int k, unsigned m,
                                            const LanePairs& p, int row0) {
   while (__any_sync(FULL, m)) {
@@ -157,7 +168,10 @@ __device__ __forceinline__ void offer_quad(winner_t* list, int k, unsigned m,
     top = max(top, __shfl_xor_sync(FULL, top, 1));
     top = max(top, __shfl_xor_sync(FULL, top, 2));
     if (best && best == top) {
-      insert_atomic(list, k, best);
+      if constexpr (GLOBAL_LISTS)
+        insert_atomic_from(list, k, best);
+      else
+        insert_atomic(list, k, best);
       m &= ~(1u << bit);
     }
     __syncwarp();
@@ -173,6 +187,7 @@ __device__ __forceinline__ void offer_quad(winner_t* list, int k, unsigned m,
 // the std window), then the offers to the std and open lists. Kept out of
 // line: it runs rarely, and one copy of it keeps the epilogue's code small.
 // All 32 lanes must call it.
+template <bool GLOBAL_LISTS>
 __device__ __noinline__ void offer_pairs(LanePairs p, unsigned cand, float qp, float qstd,
                                          float open_tol, float pad_pmz, winner_t* l_std,
                                          int k, int row0) {
@@ -187,11 +202,14 @@ __device__ __noinline__ void offer_pairs(LanePairs p, unsigned cand, float qp, f
     m_std |= (unsigned)(ok && p.sim[b] >= thr_s && d <= qstd) << b;
     m_open |= (unsigned)(ok && p.sim[b] >= thr_o && d <= open_tol) << b;
   }
-  offer_quad(l_std, k, m_std, p, row0);
-  offer_quad(l_open, k, m_open, p, row0);
+  offer_quad<GLOBAL_LISTS>(l_std, k, m_std, p, row0);
+  offer_quad<GLOBAL_LISTS>(l_open, k, m_open, p, row0);
 }
 
-template <class Route, int G, int VEC>
+// GLOBAL_LISTS: the lists are `partial` itself, (tiles, NLISTS, k) zeroed
+// by the launcher, and the queries are staged in chunks of qw words (qw =
+// Wp: all of them, once); else qw is unused.
+template <class Route, int G, int VEC, bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ q_pmz,
                       const int32_t* __restrict__ q_charge,
@@ -199,13 +217,21 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
                       const int32_t* __restrict__ r_charge,
                       const int32_t* __restrict__ tile_start, int n_tiles, int n_rows,
                       int W, int dim, int k, int rk, float std_scale, float open_tol,
-                      float pad_pmz, winner_t* __restrict__ partial) {
+                      float pad_pmz, int qw, winner_t* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Wp = padded_words(W);
-  const int swz = chunk_swizzle(Wp);
-  uint32_t* s_q = reinterpret_cast<uint32_t*>(smem_raw);               // G*QT x Wp
-  winner_t* s_list = reinterpret_cast<winner_t*>(s_q + (size_t)G * QT * Wp);
-  uint32_t* s_ring = reinterpret_cast<uint32_t*>(s_list + (size_t)G * NLISTS * k);
+  const int qs = GLOBAL_LISTS ? qw : Wp;     // words per staged query row
+  const int swz = chunk_swizzle(qs);
+  uint32_t* s_q = reinterpret_cast<uint32_t*>(smem_raw);               // G*QT x qs
+  winner_t* s_list;
+  uint32_t* s_ring;
+  if constexpr (GLOBAL_LISTS) {
+    s_list = partial + (size_t)blockIdx.y * G * NLISTS * k;
+    s_ring = s_q + (size_t)G * QT * qs;
+  } else {
+    s_list = reinterpret_cast<winner_t*>(s_q + (size_t)G * QT * Wp);
+    s_ring = reinterpret_cast<uint32_t*>(s_list + (size_t)G * NLISTS * k);
+  }
   void* s_scratch = s_ring + NWARPS * NSTAGE * STAGE_U32;               // the route's
   // Per query: pmz, its std window, charge and dim - |q| (Route::kNorms).
   __shared__ QueryInfo s_qi[G * QT];
@@ -222,27 +248,33 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
   const int t0 = blockIdx.y * G;
   const int ng = min(G, n_tiles - t0);
 
-  // Stage the group's queries (tiles past the end as zeros), zero-padded
-  // to Wp words.
-  const int chunks = Wp / 4;
-  for (int i = tid; i < G * QT * chunks; i += THREADS) {
-    const int qi = i / chunks;
-    const int u = i - qi * chunks;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (qi < ng * QT) {
-      const uint32_t* qr = q + (size_t)(t0 * QT + qi) * W + 4 * u;
-      const int w = 4 * u;
-      if (VEC == 4 && w < W) {
-        v = __ldg(reinterpret_cast<const uint4*>(qr));
-      } else {
-        v.x = w < W ? __ldg(qr) : 0u;
-        v.y = w + 1 < W ? __ldg(qr + 1) : 0u;
-        v.z = w + 2 < W ? __ldg(qr + 2) : 0u;
-        v.w = w + 3 < W ? __ldg(qr + 3) : 0u;
+  // Stage words [c0, c0 + qs) of the group's queries (tiles past the end
+  // as zeros), zero past W.
+  auto stage_queries = [&](int c0) {
+    const int chunks = qs / 4;
+    for (int i = tid; i < G * QT * chunks; i += THREADS) {
+      const int qi = i / chunks;
+      const int u = i - qi * chunks;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (qi < ng * QT) {
+        const int w = c0 + 4 * u;
+        const uint32_t* qr = q + (size_t)(t0 * QT + qi) * W + w;
+        if (VEC == 4 && w < W) {
+          v = __ldg(reinterpret_cast<const uint4*>(qr));
+        } else {
+          v.x = w < W ? __ldg(qr) : 0u;
+          v.y = w + 1 < W ? __ldg(qr + 1) : 0u;
+          v.z = w + 2 < W ? __ldg(qr + 2) : 0u;
+          v.w = w + 3 < W ? __ldg(qr + 3) : 0u;
+        }
       }
+      *reinterpret_cast<uint4*>(s_q + (size_t)qi * qs + 4 * ((qi & 1) ? (u ^ swz) : u)) = v;
     }
-    *reinterpret_cast<uint4*>(s_q + (size_t)qi * Wp + 4 * ((qi & 1) ? (u ^ swz) : u)) = v;
-  }
+  };
+  // Staged query words per chunk, in 16-word steps; one chunk: staged here.
+  const int q_steps = qs / STAGE_WORDS;
+  const bool chunked = GLOBAL_LISTS && qs < Wp;
+  if (!chunked) stage_queries(0);
   if (tid < G * QT) {
     const bool real = tid < ng * QT;
     const float qp = real ? q_pmz[t0 * QT + tid] : 0.0f;
@@ -252,7 +284,8 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
     s_qi[tid].dq = 0;
   }
   if (tid < G) s_start[tid] = tid < ng ? tile_start[t0 + tid] : 0;
-  for (int i = tid; i < G * NLISTS * k; i += THREADS) s_list[i] = 0ull;
+  if constexpr (!GLOBAL_LISTS)
+    for (int i = tid; i < G * NLISTS * k; i += THREADS) s_list[i] = 0ull;
   __syncthreads();
   if (tid == 0) {
     long long lo = s_start[0], hi = s_start[0];
@@ -264,9 +297,16 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
     s_span[1] = (int)max(lo, min(hi + rk, (long long)n_rows));
   }
   if (Route::kNorms && tid < G * QT) {
-    const uint32_t* row = s_q + (size_t)tid * Wp;
     int n = 0;
-    for (int w = 0; w < Wp; ++w) n += __popc(row[w]);   // padding words are 0
+    if constexpr (GLOBAL_LISTS) {
+      if (tid < ng * QT) {
+        const uint32_t* row = q + (size_t)(t0 * QT + tid) * W;
+        for (int w = 0; w < W; ++w) n += __popc(__ldg(row + w));
+      }
+    } else {
+      const uint32_t* row = s_q + (size_t)tid * Wp;
+      for (int w = 0; w < Wp; ++w) n += __popc(row[w]);   // padding words are 0
+    }
     s_qi[tid].dq = dim - n;
   }
   __syncthreads();
@@ -318,10 +358,17 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
         for (int i = 0; i < 4; ++i) c[gi][nt][i] = 0;
     }
     for (int s = 0; s < n_steps; ++s, ++stage) {
+      // The chunk that holds this step's words (chunked queries only).
+      const int c0 = chunked ? s / q_steps * qs : 0;
+      if (chunked && s * STAGE_WORDS == c0) {
+        __syncthreads();                        // the previous chunk is read
+        stage_queries(c0);
+        __syncthreads();
+      }
       issue(stage + NSTAGE - 1);
       cp_async_wait<NSTAGE - 1>();
       __syncwarp();
-      Route::template step<G>(c, rn, s_q, Wp, swz, ring + (stage % NSTAGE) * STAGE_U32,
+      Route::template step<G>(c, rn, s_q - c0, qs, swz, ring + (stage % NSTAGE) * STAGE_U32,
                               s * STAGE_WORDS, W, tid, s_scratch);
       __syncwarp();
     }
@@ -363,7 +410,9 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const QueryInfo qi = s_qi[gi * QT + g + 8 * h];
-        const int thr_o = list_threshold(
+        // Device lists exist only for the group's real tiles (a padded
+        // tile's queries match no row's charge).
+        const int thr_o = GLOBAL_LISTS && gi >= ng ? 0 : list_threshold(
             s_list + (size_t)(gi * NLISTS + 2 * (g + 8 * h) + 1) * k, k);
         unsigned m = 0;
 #pragma unroll
@@ -408,7 +457,7 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
                 p.sim[2 * nt + e] = Route::sim(c[gi][nt][2 * h + e], qi.dq, rn_col[nt][e], dim);
                 p.rp[2 * nt + e] = rp[nt][e];
               }
-            offer_pairs(p, cand[gi][h] & in_tile, qi.pmz, qi.std_tol, open_tol, pad_pmz,
+            offer_pairs<GLOBAL_LISTS>(p, cand[gi][h] & in_tile, qi.pmz, qi.std_tol, open_tol, pad_pmz,
                         s_list + (size_t)(gi * NLISTS + 2 * (g + 8 * h)) * k, k,
                         base + 2 * t);
           }
@@ -417,21 +466,23 @@ fused_grouped_partial(const uint32_t* __restrict__ q, const float* __restrict__ 
     }
   }
   cp_async_wait<0>();
-  __syncthreads();
-  for (int i = tid; i < ng * NLISTS * k; i += THREADS) {
-    const int gi = i / (NLISTS * k);
-    partial[((size_t)(t0 + gi) * n_splits + split) * NLISTS * k + (i - gi * NLISTS * k)] =
-        s_list[i];
+  if constexpr (!GLOBAL_LISTS) {
+    __syncthreads();
+    for (int i = tid; i < ng * NLISTS * k; i += THREADS) {
+      const int gi = i / (NLISTS * k);
+      partial[((size_t)(t0 + gi) * n_splits + split) * NLISTS * k + (i - gi * NLISTS * k)] =
+          s_list[i];
+    }
   }
 }
 
-template <class Route, int G, int VEC>
+template <class Route, int G, int VEC, bool GLOBAL_LISTS>
 int launch_partial(const void* q, const void* q_pmz, const void* q_charge, const void* r,
                    const void* r_pmz, const void* r_charge, const void* tile_start,
                    void* partial, int n_tiles, int n_rows, int W, int dim, int k, int rk,
-                   int n_splits, float std_scale, float open_tol, float pad_pmz,
+                   int n_splits, float std_scale, float open_tol, float pad_pmz, int qw,
                    size_t smem, cudaStream_t st) {
-  auto kern = fused_grouped_partial<Route, G, VEC>;
+  auto kern = fused_grouped_partial<Route, G, VEC, GLOBAL_LISTS>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -439,6 +490,7 @@ int launch_partial(const void* q, const void* q_pmz, const void* q_charge, const
   // several launches over consecutive tiles (the kernel sees its batch's
   // first tile as tile 0).
   const int n_groups = (n_tiles + G - 1) / G;
+  const size_t tile_keys = (size_t)(GLOBAL_LISTS ? 1 : n_splits) * NLISTS * k;
   for (int g0 = 0; g0 < n_groups; g0 += MAX_GRID_Y) {
     const int t0 = g0 * G;
     const int ng = n_groups - g0 < MAX_GRID_Y ? n_groups - g0 : MAX_GRID_Y;
@@ -450,20 +502,31 @@ int launch_partial(const void* q, const void* q_pmz, const void* q_charge, const
         static_cast<const uint32_t*>(r), static_cast<const float*>(r_pmz),
         static_cast<const int32_t*>(r_charge), static_cast<const int32_t*>(tile_start) + t0,
         n_tiles - t0 < ng * G ? n_tiles - t0 : ng * G, n_rows, W, dim, k, rk, std_scale,
-        open_tol, pad_pmz,
-        static_cast<winner_t*>(partial) + (size_t)t0 * n_splits * NLISTS * k);
+        open_tol, pad_pmz, qw, static_cast<winner_t*>(partial) + (size_t)t0 * tile_keys);
     e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   return 0;
 }
 
-// Launch the grouped partial kernel of `Route` and the split merge on
-// `stream`. G = GROUP tiles per CTA where the CTA's shared memory (queries,
-// lists, row rings, route scratch) fits, else 1, and cudaErrorInvalidValue
-// where not even one tile's fits (the wrapper states that bound);
-// 16-byte loads where W % 4 == 0 and q, r are 16-byte aligned. Returns a
-// cudaError_t.
+// Words of each query row that the device-list path stages at a time with
+// `scratch` bytes of route scratch: all Wp where they fit, else the most
+// that fit in multiples of 32 words.
+inline int query_chunk_words(int W, size_t scratch) {
+  const long long fit =
+      ((long long)SMEM_BUDGET - (long long)RING_BYTES - (long long)scratch) /
+      ((long long)sizeof(uint32_t) * GROUP * QT);
+  return padded_words(W) <= fit ? padded_words(W) : (int)(fit / 32 * 32);
+}
+
+// Launch the grouped partial kernel of `Route` and the split merge (or the
+// decode) on `stream`; `partial` holds (n_tiles, n_splits, NLISTS, k) keys
+// on the shared-list path and (n_tiles, NLISTS, k) on the device-list one.
+// Shared lists where k <= KSHARED and one tile's queries, lists, row rings
+// and route scratch fit in shared memory: G = GROUP tiles per CTA where they
+// fit for GROUP, else 1. Otherwise device lists with G = GROUP and the
+// queries staged whole or in chunks (query_chunk_words). 16-byte loads where
+// W % 4 == 0 and q, r are 16-byte aligned. Returns a cudaError_t.
 template <class Route>
 int launch_grouped(const void* q, const void* q_pmz, const void* q_charge, const void* r,
                    const void* r_pmz, const void* r_charge, const void* tile_start,
@@ -471,8 +534,7 @@ int launch_grouped(const void* q, const void* q_pmz, const void* q_charge, const
                    void* open_row, int n_tiles, int n_rows, int W, int dim, int k, int rk,
                    int n_splits, float std_scale, float open_tol, float pad_pmz,
                    cudaStream_t st) {
-  if (k < 1 || k > KMAX || n_splits < 1 || n_tiles < 1 || W < 1 || rk < 1 ||
-      n_splits > 65535)
+  if (k < 1 || n_splits < 1 || n_tiles < 1 || W < 1 || rk < 1 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   auto smem_for = [&](int G) {
     return sizeof(uint32_t) * G * QT * padded_words(W) + sizeof(winner_t) * G * NLISTS * k +
@@ -481,27 +543,39 @@ int launch_grouped(const void* q, const void* q_pmz, const void* q_charge, const
   const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(r) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
   int rc;
-#define REPRO_LAUNCH_GROUPED(G, V)                                                      \
-  rc = launch_partial<Route, G, V>(q, q_pmz, q_charge, r, r_pmz, r_charge, tile_start, \
-                                   partial, n_tiles, n_rows, W, dim, k, rk, n_splits,  \
-                                   std_scale, open_tol, pad_pmz, smem_for(G), st)
-  if (smem_for(GROUP) <= SMEM_BUDGET) {
-    if (vec4)
-      REPRO_LAUNCH_GROUPED(GROUP, 4);
-    else
-      REPRO_LAUNCH_GROUPED(GROUP, 1);
-  } else if (smem_for(1) <= SMEM_BUDGET) {
-    if (vec4)
-      REPRO_LAUNCH_GROUPED(1, 4);
-    else
-      REPRO_LAUNCH_GROUPED(1, 1);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_LAUNCH_GROUPED(G, V, GL, QW, SMEM)                                         \
+  rc = launch_partial<Route, G, V, GL>(q, q_pmz, q_charge, r, r_pmz, r_charge, tile_start, \
+                                       partial, n_tiles, n_rows, W, dim, k, rk, n_splits,  \
+                                       std_scale, open_tol, pad_pmz, QW, SMEM, st)
+  if (k <= KSHARED && smem_for(1) <= SMEM_BUDGET) {
+    if (smem_for(GROUP) <= SMEM_BUDGET) {
+      if (vec4)
+        REPRO_LAUNCH_GROUPED(GROUP, 4, false, 0, smem_for(GROUP));
+      else
+        REPRO_LAUNCH_GROUPED(GROUP, 1, false, 0, smem_for(GROUP));
+    } else {
+      if (vec4)
+        REPRO_LAUNCH_GROUPED(1, 4, false, 0, smem_for(1));
+      else
+        REPRO_LAUNCH_GROUPED(1, 1, false, 0, smem_for(1));
+    }
+    if (rc != 0) return rc;
+    return launch_merge(partial, n_tiles, n_splits, k, std_sim, std_row, open_sim, open_row,
+                        st);
   }
+  const int qw = query_chunk_words(W, Route::scratch_bytes(GROUP));
+  const size_t smem = sizeof(uint32_t) * GROUP * QT * qw + RING_BYTES +
+                      Route::scratch_bytes(GROUP);
+  cudaError_t e = cudaMemsetAsync(partial, 0, sizeof(winner_t) * n_tiles * NLISTS * (size_t)k,
+                                  st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (vec4)
+    REPRO_LAUNCH_GROUPED(GROUP, 4, true, qw, smem);
+  else
+    REPRO_LAUNCH_GROUPED(GROUP, 1, true, qw, smem);
 #undef REPRO_LAUNCH_GROUPED
   if (rc != 0) return rc;
-  return launch_merge(partial, n_tiles, n_splits, k, std_sim, std_row, open_sim, open_row,
-                      st);
+  return launch_decode(partial, n_tiles, k, std_sim, std_row, open_sim, open_row, st);
 }
 
 }  // namespace

@@ -83,9 +83,11 @@ struct BinaryRoute {
 
 // q (n_tiles*16, W), q_pmz/q_charge (n_tiles*16,), r (n_rows, W),
 // r_pmz/r_charge (n_rows,), tile_start (n_tiles,) int32, partial
-// (n_tiles, n_splits, 32, k) uint64 scratch, outputs (n_tiles*16, k) int32.
-// Tile t scans rows [tile_start[t], tile_start[t] + rk); n_splits CTAs
-// share each group's rows. Launches both kernels on `stream`; returns
+// (n_tiles, n_splits, 32, k) uint64 scratch ((n_tiles, 32, k) where the
+// lists live in device memory, launch_grouped), outputs (n_tiles*16, k)
+// int32. Any k >= 1 and W >= 1. Tile t scans rows [tile_start[t],
+// tile_start[t] + rk); n_splits CTAs share each group's rows. Launches the
+// search and the merge (or decode) on `stream`; returns
 // cudaGetLastError().
 extern "C" int fused_search_launch(
     const void* q, const void* q_pmz, const void* q_charge, const void* r,

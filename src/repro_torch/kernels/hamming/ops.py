@@ -9,6 +9,7 @@ they launch the kernel or raise — there is no fallback.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,10 +20,13 @@ from repro_torch.kernels.hamming import ref
 
 QT = 16            # queries per kernel tile (csrc: QT)
 GROUP = 8          # query tiles per CTA of the fused kernels (csrc: GROUP)
-K_MAX = 64         # largest top_k the fused kernels keep (csrc: KMAX)
+# Largest top_k whose winner lists a fused CTA keeps in shared memory
+# (csrc: KSHARED); larger k keeps them in device memory.
+K_SHARED = 64
 # Shared memory of one fused CTA (csrc/fused_grouped.cuh: SMEM_BUDGET,
 # RING_BYTES): G tiles' queries padded to 16-word steps, 2 * 16 lists of
-# k 8-byte keys per tile, the row rings, and the route's scratch.
+# k 8-byte keys per tile (shared lists only), the row rings, and the
+# route's scratch.
 FUSED_SMEM_BUDGET = 220 * 1024
 FUSED_RING_BYTES = 8 * 4 * 32 * 16 * 4
 # hamming_matrix stages 16 queries' words (padded to 16) in shared memory,
@@ -55,12 +59,17 @@ def n_splits_for(n_tiles: int, rk: int, n_sms: int, *,
 
 
 def fused_partial_bytes(n_queries: int, q_block: int, rk: int, k: int,
-                        n_sms: int, *, waves: int = FUSED_WAVES,
+                        n_sms: int, *, n_words: int, scratch_per_tile: int = 0,
+                        waves: int = FUSED_WAVES,
                         min_split_rows: int = MIN_SPLIT_ROWS) -> int:
-    """Bytes of the fused wrappers' largest allocation, the split kernel's
-    ``partial`` buffer (n_tiles, n_splits, 2 * QT, k) int64, for a batch of
-    ``n_queries`` sorted/padded queries in blocks of ``q_block``."""
+    """Bytes of the fused wrappers' largest allocation, the winner lists'
+    ``partial`` buffer, for a batch of ``n_queries`` sorted/padded queries
+    in blocks of ``q_block`` at ``n_words`` words: (n_tiles, n_splits, 2 *
+    QT, k) int64 with shared lists, (n_tiles, 1, 2 * QT, k) with lists in
+    device memory (:func:`fused_plan`)."""
     n_tiles = n_queries // q_block * (-(-q_block // QT))
+    if fused_plan(n_words, k, scratch_per_tile).lists == "global":
+        return n_tiles * 2 * QT * k * 8
     n_splits = n_splits_for(n_tiles, rk, n_sms, waves=waves,
                             min_split_rows=min_split_rows)
     return n_tiles * n_splits * 2 * QT * k * 8
@@ -86,11 +95,35 @@ def _pad_blocks(x, nqb, q_block, per_block, value):
 
 
 def fused_smem_bytes(G: int, W: int, k: int, scratch_per_tile: int = 0) -> int:
-    """Dynamic shared memory of one fused CTA of G query tiles (the
-    kernel's smem_for); ``scratch_per_tile`` is the route's (fused_mxu:
-    4,096 bytes a tile)."""
+    """Dynamic shared memory of one fused CTA of G query tiles with shared
+    lists (the kernel's smem_for); ``scratch_per_tile`` is the route's
+    (fused_mxu: 4,096 bytes a tile)."""
     wp = -(-W // 16) * 16
     return 4 * G * QT * wp + 8 * G * 2 * QT * k + FUSED_RING_BYTES + scratch_per_tile * G
+
+
+class FusedPlan(NamedTuple):
+    """How the fused kernels run one (W, k) (csrc/fused_grouped.cuh:
+    launch_grouped)."""
+    group: int         # query tiles per CTA
+    lists: str         # "shared": per CTA, split merge; "global": device memory
+    query_words: int   # words of each query row staged at a time
+
+
+def fused_plan(W: int, k: int, scratch_per_tile: int = 0) -> FusedPlan:
+    """The launcher's choice: shared lists where k <= K_SHARED and one
+    tile's queries, lists, rings and scratch fit (GROUP tiles per CTA where
+    they fit, else 1), all of each query's padded words staged; otherwise
+    lists in device memory with GROUP tiles per CTA, the queries staged
+    whole where they fit and else in chunks of 32-word multiples."""
+    wp = -(-W // 16) * 16
+    if k <= K_SHARED and fused_smem_bytes(1, W, k, scratch_per_tile) <= FUSED_SMEM_BUDGET:
+        g = (GROUP if fused_smem_bytes(GROUP, W, k, scratch_per_tile)
+             <= FUSED_SMEM_BUDGET else 1)
+        return FusedPlan(g, "shared", wp)
+    fit = ((FUSED_SMEM_BUDGET - FUSED_RING_BYTES - scratch_per_tile * GROUP)
+           // (4 * GROUP * QT))
+    return FusedPlan(GROUP, "global", wp if wp <= fit else fit // 32 * 32)
 
 
 @_build.kernel_op("hamming_matrix")
@@ -185,7 +218,7 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
     """Validate, pad and launch ``<kernel>_launch`` — any launcher with the
     fused_search C signature — on CUDA tensors; ``counter`` counts it.
     ``scratch_per_tile`` is the kernel's route scratch (shared memory a
-    query tile) for the shared-memory bound."""
+    query tile), which :func:`fused_plan` reads."""
     dev = q_hvs.device
     if dev.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {dev}")
@@ -209,14 +242,8 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
         raise ValueError(f"{kernel}: query sidecars must have one entry per query")
     if r_pmz.shape[0] != N or r_charge.shape[0] != N:
         raise ValueError(f"{kernel}: reference sidecars must have one entry per row")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"{kernel}: the CUDA kernel keeps 1..{K_MAX} "
-                         f"winners, got top_k={k}")
-    smem = fused_smem_bytes(1, W, k, scratch_per_tile)
-    if smem > FUSED_SMEM_BUDGET:
-        raise ValueError(f"{kernel}: W={W} words at top_k={k} need {smem} bytes "
-                         f"of shared memory per query tile, over the kernel's "
-                         f"{FUSED_SMEM_BUDGET}")
+    if k < 1:
+        raise ValueError(f"{kernel}: top_k must be at least 1, got {k}")
     if not 1 <= rk <= N:
         raise ValueError(f"{kernel}: rk={rk} must be in [1, {N}]")
     nqb = Qp // q_block
@@ -235,8 +262,9 @@ def launch_fused(kernel: str, counter: _build.LaunchCounter, q_hvs, q_pmz,
     n_splits = n_splits_for(n_tiles, rk, n_sms, waves=waves,
                             min_split_rows=min_split_rows)
 
-    partial = torch.empty((n_tiles, n_splits, 2 * QT, k), dtype=torch.int64,
-                          device=dev)
+    lists = fused_plan(W, k, scratch_per_tile).lists
+    partial = torch.empty((n_tiles, n_splits if lists == "shared" else 1, 2 * QT, k),
+                          dtype=torch.int64, device=dev)
     outs = [torch.empty((n_tiles * QT, k), dtype=torch.int32, device=dev)
             for _ in range(4)]
     launcher = getattr(_build.library(), f"{kernel}_launch")

@@ -111,9 +111,9 @@ struct Pm1Route {
 }  // namespace
 
 // The arguments of fused_search_launch (hamming/csrc/fused_search.cu);
-// dim must be 32 * W, and W and k must leave one tile's queries, lists,
-// rings and A slice within the shared-memory budget (launch_grouped).
-// Launches both kernels on `stream`; returns cudaGetLastError().
+// dim must be 32 * W. Any k >= 1 and W >= 1 (launch_grouped picks the
+// lists' place and the query chunks). Launches both kernels on `stream`;
+// returns cudaGetLastError().
 extern "C" int fused_search_mxu_launch(
     const void* q, const void* q_pmz, const void* q_charge, const void* r,
     const void* r_pmz, const void* r_charge, const void* tile_start,

@@ -71,20 +71,32 @@ def test_wrappers_refuse_other_devices(kernel):
                       mops.launches.count, mops.matrix_launches.count)
 
 
-# (kernel, top_k, widest W in words) of the fused kernels' shared-memory
-# bound, as README states them: 64 * ceil16(W) + 256 * k + 65,536 (+ 4,096
-# for fused_search_mxu's A slice) <= 225,280 bytes at one tile per CTA.
-FUSED_W_LIMITS = [("fused_search", 1, 2480), ("fused_search", 16, 2432),
-                  ("fused_search", 64, 2240), ("fused_search_mxu", 1, 2416),
-                  ("fused_search_mxu", 16, 2368), ("fused_search_mxu", 64, 2176)]
+# (kernel, top_k, W in words) -> (query tiles per CTA, lists, staged query
+# words) of fused_plan, which mirrors csrc/fused_grouped.cuh's
+# launch_grouped: shared lists where k <= 64 and one tile's queries, lists,
+# rings and scratch fit in 225,280 bytes (64 * ceil16(W) + 256 * k +
+# 65,536, + 4,096 for fused_search_mxu's A slice; G = 8 where 8 tiles fit),
+# else lists in device memory with G = 8 and the queries staged whole or in
+# 32-word multiples (288 words a chunk, 224 with the A slices).
+FUSED_PLANS = [("fused_search", 16, 128, (8, "shared", 128)),
+               ("fused_search", 64, 2240, (1, "shared", 2240)),
+               ("fused_search", 65, 128, (8, "global", 128)),
+               ("fused_search", 1, 2496, (8, "global", 288)),
+               ("fused_search_mxu", 1, 2416, (1, "shared", 2416)),
+               ("fused_search_mxu", 1024, 4096, (8, "global", 224))]
 
 
-@pytest.mark.parametrize("kernel,k,w_max", FUSED_W_LIMITS)
-def test_fused_shared_memory_limits(kernel, k, w_max):
+@pytest.mark.parametrize("kernel,k,W,plan", FUSED_PLANS)
+def test_fused_plan(kernel, k, W, plan):
+    """The path the fused wrappers take at each (kernel, k, W); a shared
+    plan at the edge of its bound goes to device lists one step past it."""
     scratch = mops.FUSED_SCRATCH_PER_TILE if kernel == "fused_search_mxu" else 0
-    assert hops.fused_smem_bytes(1, w_max, k, scratch) <= hops.FUSED_SMEM_BUDGET
-    assert hops.fused_smem_bytes(1, w_max + 1, k, scratch) > hops.FUSED_SMEM_BUDGET
-    assert hops.K_MAX == 64
+    assert hops.fused_plan(W, k, scratch) == plan
+    if plan[1] == "shared" and plan[0] == 1:
+        assert hops.fused_smem_bytes(1, W, k, scratch) <= hops.FUSED_SMEM_BUDGET
+        assert hops.fused_plan(W + 16, k, scratch).lists == "global"
+    if plan[1] == "shared":
+        assert hops.fused_plan(W, hops.K_SHARED + 1, scratch).lists == "global"
 
 
 @pytest.mark.parametrize("scratch", [0, 8 * 32 * 16])
