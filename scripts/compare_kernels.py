@@ -13,8 +13,9 @@ through its C launchers on the same device tensors:
 * hdencode on 4,096 library spectra x 64 peaks at dim 4096 (the synthetic
   iPRG2012-like generator, seed 0, preprocessed as the ingest does);
 * fused_search and fused_search_mxu on the whole Table I batch (the
-  iPRG2012-scale library and 16,000 queries of chip_smoke.py, seed 0,
-  sorted and padded as the main path does, k = 1), each tree with its own
+  iPRG2012-scale library and 16,000 queries of chip_smoke.py's main path
+  (``chip_smoke_phases``' seed and encode batch), sorted and padded as the
+  main path does, k = 1), each tree with its own
   split count (its own ``n_splits_for``).
 
 Every shape runs other, this, this, other. Each run times one launch
@@ -31,7 +32,6 @@ import ctypes
 import importlib.util
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
@@ -39,7 +39,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
+from chip_smoke_phases import common as C  # noqa: E402
 from repro_torch.core import encode_backends, search  # noqa: E402
 from repro_torch.core.blocking import PAD_PMZ  # noqa: E402
 from repro_torch.core.pipeline import OMSConfig, OMSPipeline, _make_codebooks  # noqa: E402
@@ -48,11 +50,11 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.hamming import ops as hops  # noqa: E402
 from repro_torch.kernels.hamming import ref as href  # noqa: E402
 
-ITERS = 10
-GRAPH_LAUNCHES = 20
+ITERS = C.TIMING_ITERS
+GRAPH_LAUNCHES = C.GRAPH_LAUNCHES
 MAIN_ROWS = 143_360
 BUCKET_ROWS = 4_194_304
-SPECTRA = 4096
+SPECTRA = C.ENCODE_BATCH
 
 
 FUSED = ("fused_search_launch", "fused_search_mxu_launch")
@@ -85,9 +87,10 @@ def tile_grid_args(lib) -> tuple:
 def fused_cases(libs, n_splits_fns, dev) -> dict:
     """The two fused kernels on the whole Table I batch, called through each
     tree's C launcher with that tree's split count."""
-    ds = make_dataset(iprg2012_config(scale=1.0, seed=0))
-    cfg = OMSConfig(backend="fused", encode_backend="pallas", encode_batch=SPECTRA, seed=0)
-    pipe = OMSPipeline(cfg, ds.refs, device=dev, chunk_rows=1 << 16)
+    ds = make_dataset(iprg2012_config(scale=1.0, seed=C.SEED))
+    cfg = OMSConfig(backend="fused", encode_backend="pallas", encode_batch=SPECTRA,
+                    seed=C.SEED)
+    pipe = OMSPipeline(cfg, ds.refs, device=dev, chunk_rows=C.CHUNK_ROWS)
     hvs, q_pmz, q_charge = pipe.encode_queries(ds.queries)
     params = pipe.search_params(q_pmz.cpu().numpy(), q_charge.cpu().numpy())
     gather, _ = search.sort_pad_plan(q_pmz, q_charge, params.q_block)
@@ -158,9 +161,7 @@ def main() -> int:
         print("no GPU: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = C.nvidia_smi("name,power.limit")
     libs = {"other": other_library(args.other.resolve()), "this": _build.library()}
     other_ops = _load("other_hamming_ops", args.other.resolve() / "src" / "repro_torch"
                       / "kernels" / "hamming" / "ops.py")

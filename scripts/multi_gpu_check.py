@@ -11,12 +11,15 @@ goes through the wrappers' device guard (``_build.on_device``):
    CPU; the tile kernels also at
    W = 1,024 words, where their staged query words need more than 48 KB of
    dynamic shared memory (the opt-in is per device).
-2. ``chip_smoke.py``'s phase 18 at Table I scale (the main path's ingest on
-   the first card, the store under ``build/``): ``sharded_search`` with the
-   shards on distinct cards (the fused kernels' launches there need the
-   shared-memory opt-in too), each result bit for bit against the resident
-   search on the first card, and the streamed search dealt over distinct
-   cards against the one-card streamed result.
+2. ``chip_smoke.py``'s phase 18 (``chip_smoke_phases/multi.py``) at Table I
+   scale (the main path's ingest on the first card, the store under
+   ``build/``): ``sharded_search`` with the shards on distinct cards (the
+   fused kernels' launches there need the shared-memory opt-in too), each
+   result bit for bit against the resident search on the first card, and
+   the streamed search dealt over distinct cards against the one-card
+   streamed result; then the phase's timing runs (``times_multi``: warm
+   sharded searches, one shard's search, the merge), where distinct cards
+   overlap.
 
 Prints the cards and their power limits, then one JSON object as the last
 line.
@@ -24,7 +27,6 @@ line.
 from __future__ import annotations
 
 import json
-import shutil
 import subprocess
 import sys
 import time
@@ -37,7 +39,10 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+from chip_smoke_phases import common as C  # noqa: E402
+from chip_smoke_phases import multi  # noqa: E402
+from chip_smoke_phases.context import Context  # noqa: E402
+from chip_smoke_phases.oms_kernels import build  # noqa: E402
 from repro_torch.kernels.hamming import ops as hops  # noqa: E402
 from repro_torch.kernels.hamming import ref as href  # noqa: E402
 from repro_torch.kernels.hamming_mxu import ops as mops  # noqa: E402
@@ -60,7 +65,7 @@ def _same(name: str, outs) -> None:
     """``outs``: (where, tensor) pairs; every tensor equal to the first."""
     want = outs[0][1].cpu()
     for where, t in outs[1:]:
-        cs.require(t.dtype == want.dtype and torch.equal(t.cpu(), want),
+        C.require(t.dtype == want.dtype and torch.equal(t.cpu(), want),
                    f"{name} on {where} differs from {outs[0][0]}")
 
 
@@ -86,7 +91,7 @@ def check_kernels(cards: list[torch.device]) -> None:
             outs += [(str(d), kern(q.to(d), r.to(d))) for d in cards]
             _same(f"{name} {Q}x{R}x{W}", outs)
     torch.cuda.synchronize()
-    cs.log(f"[multi-gpu] hdencode {HD_SHAPE}, hamming_matrix and hamming_mxu at "
+    C.log(f"[multi-gpu] hdencode {HD_SHAPE}, hamming_matrix and hamming_mxu at "
            f"{TILE_SHAPES} on {[str(d) for d in cards]} (current device cuda:0): "
            f"== the plain versions on the CPU")
 
@@ -95,38 +100,27 @@ def main() -> int:
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("multi_gpu_check: needs two or more CUDA devices", file=sys.stderr)
         return 2
-    from repro_torch.core.pipeline import OMSConfig, OMSPipeline
-    from repro_torch.data.spectra import iprg2012_config, make_dataset
-
     t_all = time.perf_counter()
     n = torch.cuda.device_count()
     cards = [torch.device("cuda", i) for i in range(n)]
     for d in cards:
-        cs.log(f"[multi-gpu] {d}: {torch.cuda.get_device_name(d)}")
+        C.log(f"[multi-gpu] {d}: {torch.cuda.get_device_name(d)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
-    cs.phase_build()
+    build()
     check_kernels(cards)
 
-    cfg = OMSConfig(backend="fused", encode_backend="pallas",
-                    encode_batch=cs.ENCODE_BATCH, seed=cs.SEED)
-    ds = make_dataset(iprg2012_config(scale=1.0, seed=cs.SEED))
-    pipe, hvs, q_pmz, q_charge, _, _ = cs.phase_main_path(torch, ds, cfg)
-    cs.STORE_DIR = STORE_DIR
-    shutil.rmtree(STORE_DIR, ignore_errors=True)
-    STORE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    ctx = Context(torch, store_dir=STORE_DIR)
     try:
-        store = OMSPipeline.ingest(cfg, ds.refs, str(STORE_DIR), device=cs.DEVICE,
-                                   chunk_rows=cs.CHUNK_ROWS)
-        spipe = OMSPipeline.from_store(store, cfg, device=cs.DEVICE, resident=False,
-                                       slab_rows=cs.STREAM_SERVE_SLAB_ROWS)
-        launches = cs.phase_multi_device(torch, pipe, spipe, cfg, hvs, q_pmz, q_charge)
+        multi.multi_device(ctx)
+        times = multi.times_multi(ctx)
     finally:
-        shutil.rmtree(STORE_DIR, ignore_errors=True)
-    cs.log(f"[multi-gpu] all checks passed in {time.perf_counter() - t_all:.1f}s")
+        ctx.close()
+    C.log(f"[multi-gpu] all checks passed in {time.perf_counter() - t_all:.1f}s")
     print(smi)
-    print(json.dumps({"ok": True, "cards": n, "launches_by_path": launches}), flush=True)
+    print(json.dumps({"ok": True, "cards": n, "launches_by_path": ctx.by_path,
+                      "times": times}), flush=True)
     return 0
 
 

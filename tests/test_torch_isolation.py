@@ -1,5 +1,6 @@
-"""The port stands alone: no module of repro_torch (nor chip_smoke.py,
-nor the port's examples ``examples/*_torch.py``) imports jax or the
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py, its
+phase modules chip_smoke_phases/, scripts/chip_times.py, nor the port's
+examples ``examples/*_torch.py``) imports jax or the
 reference package, every module imports with jax
 absent, and entry points refuse to fall back to the CPU silently."""
 import pytest
@@ -32,11 +33,16 @@ EXAMPLES = ("quickstart_torch.py", "oms_search_e2e_torch.py", "serve_lm_torch.py
 
 def _port_files():
     return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "chip_smoke_phases").glob("*.py"))
+            + [ROOT / "scripts" / "chip_times.py"]
             + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def test_static_scan_finds_no_jax_or_reference_import():
     assert (ROOT / "chip_smoke.py").exists()
+    assert {p.name for p in _port_files() if p.parent.name == "chip_smoke_phases"} >= {
+        "__init__.py", "common.py", "oms_kernels.py", "launcher.py", "lm.py"}
+    assert ROOT / "scripts" / "chip_times.py" in _port_files()
     assert {p.name for p in _port_files() if p.parent.name == "examples"} == set(EXAMPLES)
     hits = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
             for p in _port_files() for m in FORBIDDEN.finditer(p.read_text())]
