@@ -28,6 +28,7 @@ from repro_torch.analysis.registry import declare as _declare
 from repro_torch.core import encoding
 from repro_torch.core.encoding import (Codebooks, PreprocessParams,
                                        PreprocessedSpectra)
+from repro_torch.core.search import _upload
 
 ENCODE = "encode"
 FUSED = "fused"
@@ -80,11 +81,12 @@ def preprocess_encode(mz, intensity, pmz, charge, cb: Codebooks,
     """Preprocess + encode a raw spectrum batch through ``backend``.
 
     The single entry point the pipeline uses for queries and library chunks
-    alike. Inputs (numpy or tensors) move to the codebooks' device. Returns
+    alike. Inputs (numpy or tensors) move to the codebooks' device, each
+    copy inside span ``sync.encode.upload``. Returns
     ``(hvs, pmz, charge)``: hvs (B, W) int32, pmz float32, charge int32.
     """
     dev = cb.device
-    mz, intensity, pmz, charge = (torch.as_tensor(x, device=dev)
+    mz, intensity, pmz, charge = (_upload(x, dev, "sync.encode.upload")
                                   for x in (mz, intensity, pmz, charge))
     be = get(backend)
     if be.kind == FUSED:

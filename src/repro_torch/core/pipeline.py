@@ -347,8 +347,8 @@ class OMSPipeline:
         engine's per-slab times (streamed)."""
         # One host copy of the query sidecars, shared by plan_search and the
         # padding plan.
-        qp_np = q_pmz.cpu().numpy()
-        qc_np = q_charge.cpu().numpy()
+        qp_np = _host(q_pmz, "sync.query.sidecars")
+        qc_np = _host(q_charge, "sync.query.sidecars")
         with span("pipeline.plan", queries=int(qp_np.shape[0])):
             params = self.search_params(qp_np, qc_np, exhaustive=exhaustive,
                                         open_tol_da=open_tol_da,
@@ -416,8 +416,8 @@ class OMSPipeline:
         search; ``stage1_per_query`` gates stage 1 per query (serve mode);
         ``prefix_words`` runs the open stage as the dimension cascade (the
         narrow stage always scans full width)."""
-        qp_np = q_pmz.cpu().numpy()
-        qc_np = q_charge.cpu().numpy()
+        qp_np = _host(q_pmz, "sync.query.sidecars")
+        qc_np = _host(q_charge, "sync.query.sidecars")
         meta = self._block_meta
         k = self.cfg.top_k if top_k is None else top_k
 

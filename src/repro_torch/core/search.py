@@ -34,6 +34,7 @@ import torch
 from repro_torch.core import backends as backends_mod
 from repro_torch.core.blocking import PAD_PMZ, ReferenceDB
 from repro_torch.kernels.hamming import ref as href
+from repro_torch.obs.trace import NOOP_SPAN, span
 
 # Charge multiplier for monotonic (charge, pmz) sort keys; pmz is clipped
 # below it so keys of different charges never interleave.
@@ -345,19 +346,21 @@ def _prefix_search_padded(db: ReferenceDB, qh, qp, qc, *, params: SearchParams,
 def _padding_plan(q_block: int, group_sizes: tuple[int, ...]):
     """Row-selection plan for (charge, pmz)-sorted queries: each charge group
     padded to a ``q_block`` multiple by repeating its last (highest-pmz)
-    row. Depends only on the per-charge counts, hence the memoization."""
-    sel_rows, is_real = [], []
-    start = 0
-    for n in group_sizes:
-        g = list(range(start, start + n))
-        sel_rows.extend(g)
-        is_real.extend([True] * n)
-        padn = (-n) % q_block
-        sel_rows.extend([g[-1]] * padn)
-        is_real.extend([False] * padn)
-        start += n
-    sel = np.asarray(sel_rows, dtype=np.int64)
-    real = np.asarray(is_real, dtype=bool)
+    row. Depends only on the per-charge counts, hence the memoization; the
+    span ``scan.pad_plan`` opens only on a miss."""
+    with span("scan.pad_plan"):
+        sel_rows, is_real = [], []
+        start = 0
+        for n in group_sizes:
+            g = list(range(start, start + n))
+            sel_rows.extend(g)
+            is_real.extend([True] * n)
+            padn = (-n) % q_block
+            sel_rows.extend([g[-1]] * padn)
+            is_real.extend([False] * padn)
+            start += n
+        sel = np.asarray(sel_rows, dtype=np.int64)
+        real = np.asarray(is_real, dtype=bool)
     sel.setflags(write=False)
     real.setflags(write=False)
     return sel, real
@@ -408,8 +411,8 @@ def sort_pad_plan(q_pmz: torch.Tensor, q_charge: torch.Tensor, q_block: int, *,
              else np.asarray(q_charge_np))
     counts = np.unique(qc_np, return_counts=True)[1]
     sel_np, real_np = _padding_plan(q_block, tuple(int(c) for c in counts))
-    gather = order[torch.from_numpy(sel_np.copy()).to(dev)]
-    keep = torch.from_numpy(np.flatnonzero(real_np)).to(dev)
+    gather = order[_upload(sel_np.copy(), dev, "sync.scan.pad_upload")]
+    keep = _upload(np.flatnonzero(real_np), dev, "sync.scan.pad_upload")
     inverse = torch.empty_like(order)
     inverse[order] = torch.arange(Q, device=dev)
     return gather, keep[inverse]
@@ -436,8 +439,9 @@ def oms_search(db: ReferenceDB, q_hvs: torch.Tensor, q_pmz: torch.Tensor,
     validate_search_params(params, db.n_rows)
     if params.prefix_words:
         validate_prefix_words(params, dim)
-    gather, unpad = sort_pad_plan(q_pmz, q_charge, params.q_block,
-                                  q_charge_np=q_charge_np)
+    with span("scan.sort_pad"):
+        gather, unpad = sort_pad_plan(q_pmz, q_charge, params.q_block,
+                                      q_charge_np=q_charge_np)
     # Padding queries keep their charge (the block stays charge-pure) and
     # are dropped on output.
     qh, qp, qc = q_hvs[gather], q_pmz[gather], q_charge[gather]
@@ -451,8 +455,9 @@ def oms_search(db: ReferenceDB, q_hvs: torch.Tensor, q_pmz: torch.Tensor,
             qc_np=_host(q_charge) if q_charge_np is None else q_charge_np,
             prefix_hvs=prefix_hvs, stats=stats)
     else:
-        std_b, std_row, open_b, open_row = _search_sorted_padded(
-            db, qh, qp, qc, params=params, dim=dim)
+        with span("scan.launch"):
+            std_b, std_row, open_b, open_row = _search_sorted_padded(
+                db, qh, qp, qc, params=params, dim=dim)
     std_b, std_row = std_b[unpad], std_row[unpad]
     open_b, open_row = open_b[unpad], open_row[unpad]
 
@@ -468,8 +473,24 @@ def oms_search(db: ReferenceDB, q_hvs: torch.Tensor, q_pmz: torch.Tensor,
     return SearchResult(std_idx, std_sim, open_idx, open_sim, std_row, open_row)
 
 
-def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _host(x, sync: str | None = None) -> np.ndarray:
+    """``x`` as a host array. A tensor's copy runs inside span ``sync`` when
+    one is named (``repro_torch.obs.trace``: one ``sync.*`` span a copy)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    with span(sync) if sync else NOOP_SPAN:
+        return x.cpu().numpy()
+
+
+def _upload(x, device, sync: str) -> torch.Tensor:
+    """``torch.as_tensor(x, device=device)``, the copy inside span ``sync``;
+    a tensor already on ``device`` is returned as it is and opens none."""
+    device = torch.device(device)
+    if (isinstance(x, torch.Tensor) and x.device.type == device.type
+            and device.index in (None, x.device.index)):
+        return x
+    with span(sync):
+        return torch.as_tensor(x, device=device)
 
 
 def plan_search(db, q_pmz, q_charge, *, open_tol_da: float,
@@ -479,8 +500,8 @@ def plan_search(db, q_pmz, q_charge, *, open_tol_da: float,
     the open window, plus a guard. ``db`` is anything exposing the block
     sidecars: a resident ReferenceDB (tensors) or a serve StoreLayout
     (numpy)."""
-    bmin, bmax = _host(db.block_min), _host(db.block_max)
-    bch = _host(db.block_charge)
+    bmin, bmax, bch = (_host(x, "sync.plan.block_meta")
+                       for x in (db.block_min, db.block_max, db.block_charge))
     qp, qc = _host(q_pmz), _host(q_charge)
     Q = len(qp)
     if Q == 0:

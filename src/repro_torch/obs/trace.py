@@ -10,6 +10,15 @@ the device work does, and one that ends at a host synchronisation (a
 ``.cpu()`` copy, an event wait) includes the device work it waited for.
 Tracing adds no synchronisation and changes no result byte.
 
+Beyond the reference's names, the resident search path names its host
+seams: ``scan.sort_pad`` (the query sort and padding plan), ``scan.pad_plan``
+(the padding plan's build, only on a memo miss) and ``scan.launch`` (start
+rows, the backend's wrapper, the kernel launch). A span named ``sync.<layer>.
+<copy>`` wraps one copy between the host and the search's device, opened
+only where a copy happens (an input already on the device opens none), so
+the count of ``sync.*`` spans is the count of synchronising copies. On a CPU
+pipeline the same sites open the same spans.
+
 Zero-overhead-when-disabled is the design center: with no tracer
 installed, ``span(...)`` is one module-global read plus returning a
 shared no-op singleton — no object allocation, no clock read, no lock.
