@@ -18,7 +18,8 @@ exits nonzero; nothing is caught into a success. The timing-only runs
   2. hdencode (oms_kernels): hdencode and the tile kernels at their edges.
   3. main_path (oms_paths): the Table I main path; fused_search on its
      blocks, on grouped runs and at the grouped design's edges.
-  4. paths (oms_paths): kernels against the plain torch ops and the CPU.
+  4. paths (oms_paths): kernels against the plain torch ops and the CPU;
+     the device planner against the host's at the benchmark's sizes.
   5. times (oms_kernels): hdencode and fused_search timed, their bounds.
   6. tile_check (oms_kernels): the tile kernels on main-path blocks and the
      cascade's bucket; fused_search_mxu on main-path blocks.

@@ -16,7 +16,16 @@
     (vpu, word_tiled) and through the kernels (fused, pallas) against the
     full DB; a 4,096-row library slice re-encoded with word_tiled against the
     kernel-built DB; and a small dataset through the kernels on the card
-    against the plain versions on the CPU.
+    against the plain versions on the CPU. Then the planner: on PLAN_CASES
+    seeded small libraries and runs at its edges (absent charges, padding
+    blocks, tied and negative pmz, -0.0, the n_blocks cap, runs shorter
+    than q_block) the plan_reach kernel against its plain version and
+    ``plan_search`` on the card's tensors against the host planner; at the
+    size of each configuration of the benchmark (``portbench/configs``, its
+    generator and ingest): on PLAN_RUNS of its pool's runs ``plan_search``
+    on the run's device tensors returns the host planner's ``k_blocks``,
+    and in one search torch's sync debug mode flags one copy inside span
+    ``pipeline.plan``, the one inside ``sync.plan.k_blocks``.
  8. the kernel backends end to end: search_encoded with kernel_vpu,
     kernel_mxu and fused_mxu on the full batch, each equal to phase 3's
     fused result (6 SearchResult arrays, both FDR results); each run's
@@ -49,6 +58,11 @@ from .oms_common import (FUSED_GROUP_KS, FUSED_GROUP_RUN, FUSED_OUTS, NARROW_W,
 
 PATH_CHECK_QUERIES = 512
 SLICE_ROWS = 4096
+# The benchmark's cells whose configurations phase 4 plans at full size
+# (the top-10 cell shares iprg2012's), and the pool runs planned in each.
+PLAN_CELLS = ("iprg2012.open_batch", "hek293.open_batch")
+PLAN_RUNS = 4
+PLAN_CASES = 200
 # The kernel backends of phase 8 and the kernel each of them launches.
 BACKEND_KERNELS = {"kernel_vpu": "hamming_matrix", "kernel_mxu": "hamming_mxu",
                    "fused_mxu": "fused_search_mxu"}
@@ -297,6 +311,115 @@ def paths(ctx) -> None:
     hit = np.mean(a.result.open_idx[:, 0].cpu().numpy() == small.query_source)
     log(f"[paths] small dataset (1024 refs, 64 queries, dim 1024, top_k 2): card "
         f"(fused, pallas) == CPU (vpu, word_tiled); open recall@1 {hit:.3f}")
+    planner_edges(torch)
+    for cell in PLAN_CELLS:
+        planner_cell(torch, cell)
+
+
+def planner_edges(torch) -> None:
+    """The plan_reach kernel == its plain version, and the device plan ==
+    the host plan, on PLAN_CASES seeded small cases."""
+    import numpy as np
+    from repro_torch.core import blocking, search
+    from repro_torch.kernels.plan import ops, ref
+    rng = np.random.default_rng(C.SEED + 32)
+    ks = set()
+    for _ in range(PLAN_CASES):
+        n, max_r = int(rng.integers(1, 400)), int(rng.choice([1, 4, 16]))
+        scale = float(rng.choice([10.0, 1000.0, 8000.0]))
+        pmz = (rng.uniform(-0.2, 1.0, n) * scale).astype(np.float32)
+        tied = rng.random(n) < 0.3
+        pmz[tied] = np.round(pmz[tied])
+        charge = rng.choice([2, 3, 4], n).astype(np.int32)
+        db = blocking.build_reference_db(np.zeros((n, 1), np.int32), pmz, charge,
+                                         np.zeros(n, bool), max_r=max_r, device=C.DEVICE)
+        if rng.random() < 0.3:
+            db = blocking.shard_reference_db(db, int(rng.integers(2, 6)))
+        Q = int(rng.choice([0, 1, 7, 300, 2000]))
+        qp = (rng.uniform(-0.2, 1.0, Q) * scale).astype(np.float32)
+        tied = rng.random(Q) < 0.2
+        qp[tied] = np.round(qp[tied])
+        qp[rng.random(Q) < 0.1] = np.float32(-0.0)
+        qc = rng.choice([1, 2, 3, 4, 5, -1], Q).astype(np.int32)
+        kw = dict(open_tol_da=float(rng.choice([0.0, 20.0, 75.0, 1e4])),
+                  q_block=int(rng.choice([1, 8, 16])))
+        qp_t, qc_t = (torch.from_numpy(x).to(C.DEVICE) for x in (qp, qc))
+        host = search.plan_search(db, qp, qc, **kw)
+        on_device = search.plan_search(db, qp_t, qc_t, **kw)
+        require(on_device == host, f"planner edge case (n={n}, max_r={max_r}, "
+                f"Q={Q}, {kw}): device plan {on_device} != host plan {host}")
+        ks.add(host)
+        if Q:
+            sp, by_pmz = torch.sort(qp_t, stable=True)
+            sc, by_charge = torch.sort(qc_t[by_pmz], stable=True)
+            args = (sp[by_charge], sc, *search.plan_block_keys(db))
+            got = int(ops.plan_reach(*args, **kw).item())
+            want = int(ref.plan_reach(*args, **kw).item())
+            require(got == want, f"plan_reach kernel {got} != plain {want} "
+                    f"(n={n}, max_r={max_r}, Q={Q}, {kw})")
+    log(f"[paths] planner edges: {PLAN_CASES} seeded cases, plan_reach kernel == "
+        f"plain and device plan == host plan (k_blocks {min(ks)}..{max(ks)})")
+
+
+def planner_cell(torch, name: str) -> None:
+    """The device planner on one benchmark configuration at its size: the
+    host planner's ``k_blocks`` on PLAN_RUNS pool runs, and one copy that
+    synchronises inside ``pipeline.plan`` (torch's sync debug mode)."""
+    import warnings
+
+    from portbench import gen_spectra, harness
+    from repro_torch.core import search
+    from repro_torch.core.pipeline import OMSPipeline
+    from repro_torch.obs import trace
+    cell = harness.resolve(harness.load_benchmark(), name)
+    seed = C.SEED + 31
+    library, pool, _ = gen_spectra.make_inputs(
+        cell.config, {**cell.traffic, "pool_runs": PLAN_RUNS, "warm_runs": 0},
+        seed, C.DEVICE)
+    pipe = OMSPipeline(harness.driver(cell.traffic["driver"]).oms_config(
+        cell.config, seed), library, device=C.DEVICE)
+    del library
+    cfg = pipe.cfg
+    ks = []
+    for run in pool:
+        _, qp, qc = pipe.encode_queries(run)
+        kw = dict(open_tol_da=cfg.open_tol_da, q_block=cfg.q_block)
+        on_device = search.plan_search(pipe.db, qp, qc, **kw)
+        host = search.plan_search(pipe.db, qp.cpu().numpy(), qc.cpu().numpy(), **kw)
+        require(on_device == host, f"{name}: device plan k_blocks {on_device} != "
+                f"host plan {host}")
+        ks.append(host)
+    pipe.search(pool[0])
+    torch.cuda.synchronize()
+    flagged = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            flagged.append(time.perf_counter_ns())
+
+    tracer = trace.install(trace.Tracer())
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                pipe.search(pool[1])
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        trace.uninstall()
+    one = {e.name: e for e in tracer.events()}
+    plan, k_span = one["pipeline.plan"], one["sync.plan.k_blocks"]
+    in_plan = [t for t in flagged if plan.t_start_ns <= t <= plan.t_end_ns]
+    require(len(in_plan) == 1 and k_span.t_start_ns <= in_plan[0] <= k_span.t_end_ns,
+            f"{name}: {len(in_plan)} synchronising copies inside pipeline.plan")
+    log(f"[paths] {name} at size ({pipe.db.n_blocks} blocks, "
+        f"{pool[0].pmz.shape[0]} queries a run): device plan == host plan on "
+        f"{len(ks)} pool runs (k_blocks {ks}); one synchronising copy in "
+        f"pipeline.plan, in sync.plan.k_blocks ({len(flagged)} in the search)")
+    del pipe, pool
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ from repro_torch.core.cascade import (CascadeOutput, CascadeParams,
 from repro_torch.core.fdr import FDRResult, fdr_filter
 from repro_torch.core.search import (SearchParams, SearchResult, _host,
                                      narrow_search_params, oms_search,
-                                     plan_search, scanned_rows)
+                                     plan_block_keys, plan_search,
+                                     scanned_rows)
 from repro_torch.data.spectra import SpectraSet
 from repro_torch.obs.trace import span
 from repro_torch.serve import StreamingEngine
@@ -180,6 +181,7 @@ class OMSPipeline:
         self.db: ReferenceDB = build_reference_db_from_runs(
             runs, max_r=cfg.max_r, device=self.device)
         self._host_sidecars_cache = None
+        self._plan_keys_cache = None
         self._prefix_hvs: dict[int, torch.Tensor] = {}
 
     # ------------------------------------------------------------------
@@ -254,6 +256,7 @@ class OMSPipeline:
         self.codebooks = _make_codebooks(cfg, self.device)
         self.n_targets = store.n_targets
         self._host_sidecars_cache = None
+        self._plan_keys_cache = None
         self._prefix_hvs = {}
         if resident:
             self.db = store.load_reference_db(max_r=cfg.max_r, device=self.device)
@@ -280,6 +283,7 @@ class OMSPipeline:
         self.engine.reload(store)
         self.n_targets = store.n_targets
         self._host_sidecars_cache = None
+        self._plan_keys_cache = None
 
     @property
     def _block_meta(self):
@@ -297,6 +301,14 @@ class OMSPipeline:
             self._host_sidecars_cache = (_host(meta.pmz), _host(meta.charge),
                                          _host(meta.is_decoy))
         return self._host_sidecars_cache
+
+    @property
+    def _plan_keys(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The resident DB's block keys for the device planner
+        (``search.plan_block_keys``), made once."""
+        if self._plan_keys_cache is None:
+            self._plan_keys_cache = plan_block_keys(self.db)
+        return self._plan_keys_cache
 
     def prefix_hvs(self, prefix_words: int) -> torch.Tensor:
         """Contiguous (n_rows, prefix_words) copy of the DB's leading words,
@@ -320,8 +332,11 @@ class OMSPipeline:
                       prefix_words=None, prefix_margin=None,
                       prefix_seed_da=None) -> SearchParams:
         tol = self.cfg.open_tol_da if open_tol_da is None else open_tol_da
-        k = plan_search(self._block_meta, _host(q_pmz), _host(q_charge),
-                        open_tol_da=tol, q_block=self.cfg.q_block)
+        # Query tensors on the resident DB's device are planned there.
+        keys = (self._plan_keys if self.db is not None
+                and isinstance(q_pmz, torch.Tensor) else None)
+        k = plan_search(self._block_meta, q_pmz, q_charge, open_tol_da=tol,
+                        q_block=self.cfg.q_block, block_keys=keys)
         return SearchParams(
             ppm_tol=self.cfg.ppm_tol, open_tol_da=tol,
             q_block=self.cfg.q_block, k_blocks=k,
@@ -345,12 +360,18 @@ class OMSPipeline:
         """Search already-encoded query HVs. ``stats``, when given, receives
         the dimension cascade's stage counts and times (resident) or the
         engine's per-slab times (streamed)."""
-        # One host copy of the query sidecars, shared by plan_search and the
-        # padding plan.
-        qp_np = _host(q_pmz, "sync.query.sidecars")
+        # The query charges go to the host once, for the padding plan; the
+        # pmz only for a host reader: the streamed engine, or the dimension
+        # cascade's seed plan. Resident, the planner reads the device tensors.
+        resident = self.engine is None
+        if prefix_words is None:
+            prefix_words = self.cfg.prefix_words
+        qp_np = (None if resident and not prefix_words
+                 else _host(q_pmz, "sync.query.sidecars"))
         qc_np = _host(q_charge, "sync.query.sidecars")
-        with span("pipeline.plan", queries=int(qp_np.shape[0])):
-            params = self.search_params(qp_np, qc_np, exhaustive=exhaustive,
+        plan_in = (q_pmz, q_charge) if resident else (qp_np, qc_np)
+        with span("pipeline.plan", queries=int(q_pmz.shape[0])):
+            params = self.search_params(*plan_in, exhaustive=exhaustive,
                                         open_tol_da=open_tol_da,
                                         backend=backend, top_k=top_k,
                                         prefix_words=prefix_words,

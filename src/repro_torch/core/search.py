@@ -34,6 +34,8 @@ import torch
 from repro_torch.core import backends as backends_mod
 from repro_torch.core.blocking import PAD_PMZ, ReferenceDB
 from repro_torch.kernels.hamming import ref as href
+from repro_torch.kernels.plan import ops as plan_ops
+from repro_torch.kernels.plan import ref as plan_ref
 from repro_torch.obs.trace import NOOP_SPAN, span
 
 # Charge multiplier for monotonic (charge, pmz) sort keys; pmz is clipped
@@ -494,12 +496,22 @@ def _upload(x, device, sync: str) -> torch.Tensor:
 
 
 def plan_search(db, q_pmz, q_charge, *, open_tol_da: float,
-                q_block: int, safety_blocks: int = 2) -> int:
-    """Pick the static ``k_blocks`` cap on the host: the most contiguous
-    blocks any q_block run of (charge, pmz)-sorted queries can touch under
-    the open window, plus a guard. ``db`` is anything exposing the block
-    sidecars: a resident ReferenceDB (tensors) or a serve StoreLayout
-    (numpy)."""
+                q_block: int, safety_blocks: int = 2, block_keys=None) -> int:
+    """Pick the static ``k_blocks`` cap: the most contiguous blocks any
+    q_block run of (charge, pmz)-sorted queries can touch under the open
+    window, plus a guard. ``db`` is anything exposing the block sidecars: a
+    resident ReferenceDB (tensors) or a serve StoreLayout (numpy).
+
+    Query tensors on the device of a ReferenceDB's block sidecars are
+    planned there (:func:`plan_search_device`, ``block_keys`` its keys when
+    made already); anything else is planned on the host, as below. Both
+    give the same integer."""
+    if isinstance(db, ReferenceDB) and all(
+            isinstance(x, torch.Tensor) and x.device == db.block_min.device
+            for x in (q_pmz, q_charge)):
+        return plan_search_device(db, q_pmz, q_charge, open_tol_da=open_tol_da,
+                                  q_block=q_block, safety_blocks=safety_blocks,
+                                  block_keys=block_keys)
     bmin, bmax, bch = (_host(x, "sync.plan.block_meta")
                        for x in (db.block_min, db.block_max, db.block_charge))
     qp, qc = _host(q_pmz), _host(q_charge)
@@ -534,6 +546,46 @@ def plan_search(db, q_pmz, q_charge, *, open_tol_da: float,
         spans = (last - first + 1)[first <= last]
         if len(spans):
             worst = max(worst, int(spans.max()))
+    return min(worst + safety_blocks, db.n_blocks)
+
+
+def plan_block_keys(db: ReferenceDB) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device planner's block keys: every block's (charge, min pmz) and
+    (charge, max pmz) as exact int64 pair keys (``kernels.plan.ref.
+    pair_key``), each list sorted; two (n_blocks,) int64 tensors on the DB's
+    device. Padding blocks (charge -1, bounds +inf / -inf) sort with their
+    charge and match no query."""
+    return (torch.sort(plan_ref.pair_key(db.block_charge, db.block_min)).values,
+            torch.sort(plan_ref.pair_key(db.block_charge, db.block_max)).values)
+
+
+def plan_search_device(db: ReferenceDB, q_pmz: torch.Tensor,
+                       q_charge: torch.Tensor, *, open_tol_da: float,
+                       q_block: int, safety_blocks: int = 2,
+                       block_keys=None) -> int:
+    """:func:`plan_search` on the device of ``db``'s block sidecars, from
+    float32 query tensors there, reading back one scalar (span
+    ``sync.plan.k_blocks``). ``block_keys`` is :func:`plan_block_keys` of
+    ``db`` (made here when absent).
+
+    The queries are sorted as ``np.lexsort((pmz, charge))`` sorts them: by
+    pmz, then stably by charge (the float32 ``_CHARGE_KEY`` key would tie
+    pmz within ~0.004 Da at charge 4 and could move a q-block boundary).
+    ``kernels.plan.ops.plan_reach`` then gives the most blocks one q-block
+    segment reaches, as the host's per-charge ``searchsorted``s count
+    them."""
+    Q = q_pmz.shape[0]
+    if Q == 0:
+        return min(1 + safety_blocks, db.n_blocks)
+    if q_pmz.dtype != torch.float32:
+        raise TypeError(f"q_pmz must be float32, got {q_pmz.dtype}")
+    kmin, kmax = plan_block_keys(db) if block_keys is None else block_keys
+    qp, by_pmz = torch.sort(q_pmz, stable=True)
+    qc, by_charge = torch.sort(q_charge[by_pmz], stable=True)
+    reach = plan_ops.plan_reach(qp[by_charge], qc, kmin, kmax, q_block=q_block,
+                                open_tol_da=open_tol_da)
+    with span("sync.plan.k_blocks"):
+        worst = max(int(reach.item()), 1)
     return min(worst + safety_blocks, db.n_blocks)
 
 

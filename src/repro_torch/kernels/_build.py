@@ -165,6 +165,8 @@ _SIGNATURES = {
     "hamming_matrix_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # q, r, out, Q, R, W, dim, ctas_per_sm, stream
     "hamming_mxu_launch": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    # qp, qc, kmin, kmax, out, Q, n_blocks, q_block, open_tol, stream
+    "plan_reach_launch": ([_P] * 5 + [_I] * 3 + [_F, _P], _I),
 }
 
 

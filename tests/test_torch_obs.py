@@ -261,7 +261,8 @@ def store(tmp_path_factory):
 # The port's spans at the search path's host seams, which the reference has
 # not: one per synchronising host<->device copy, and the scan's prologue.
 PORT_SPANS = {"sync.encode.upload", "sync.query.sidecars", "sync.plan.block_meta",
-              "sync.scan.pad_upload", "scan.sort_pad", "scan.pad_plan", "scan.launch"}
+              "sync.plan.k_blocks", "sync.scan.pad_upload", "scan.sort_pad",
+              "scan.pad_plan", "scan.launch"}
 
 
 def _span_multiset(events):

@@ -23,14 +23,15 @@ CFG = dict(dim=256, max_r=64, bin_size=0.2, encode_batch=64)
 BACKENDS = [("fused", "pallas"), ("vpu", "word_tiled")]
 
 # Spans of one resident search with host query arrays: the copies the
-# search makes, and the scan's host prologue on a padding-plan memo miss.
-SYNC_COUNTS = {"sync.encode.upload": 4, "sync.query.sidecars": 2,
-               "sync.plan.block_meta": 3, "sync.scan.pad_upload": 2}
+# search makes (the query charges for the padding plan, the planner's one
+# scalar), and the scan's host prologue on a padding-plan memo miss.
+SYNC_COUNTS = {"sync.encode.upload": 4, "sync.query.sidecars": 1,
+               "sync.plan.k_blocks": 1, "sync.scan.pad_upload": 2}
 SCAN_COUNTS = {"scan.sort_pad": 1, "scan.pad_plan": 1, "scan.launch": 1}
 # The stage span each site lies in; the query sidecars lie between the
 # encode and the plan, in none.
 STAGE = {"sync.encode.upload": "pipeline.encode",
-         "sync.plan.block_meta": "pipeline.plan",
+         "sync.plan.k_blocks": "pipeline.plan",
          "sync.scan.pad_upload": "scan.sort_pad",
          "scan.pad_plan": "scan.sort_pad",
          "scan.sort_pad": "pipeline.scan", "scan.launch": "pipeline.scan"}
@@ -84,7 +85,7 @@ def test_sync_and_scan_spans_count_the_copies_and_the_prologue(backend, encode_b
     counts = collections.Counter(e.name for e in events)
     got = {n: c for n, c in counts.items() if n.startswith(("sync.", "scan."))}
     assert got == {**SYNC_COUNTS, **SCAN_COUNTS}
-    assert sum(c for n, c in got.items() if n.startswith("sync.")) == 11
+    assert sum(c for n, c in got.items() if n.startswith("sync.")) == 8
     for name in ("pipeline.encode", "pipeline.plan", "pipeline.scan", "pipeline.fdr"):
         assert counts[name] == 1
 
